@@ -1,0 +1,20 @@
+"""lbm_tpu_torch — the plasma lattice-Boltzmann engine in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (H100).
+
+A port of lbm_tpu (JAX/Pallas, the reference, which stays beside it):
+same state layout, same physics expression trees, same guards. It imports
+torch and numpy, never JAX. The golden configuration (D2Q9, three species
+with DDF thermal populations, FFT Poisson, periodic BCs) runs end to end;
+see ROADMAP.md for the rest.
+"""
+
+from . import config, constants, units  # noqa: F401
+from .config import (  # noqa: F401
+    BC,
+    CompatFlags,
+    PlasmaConfig,
+    PoissonSolver,
+    preset_golden_plasma,
+    preset_plasma_1024,
+    preset_plasma_4096,
+)

@@ -1,0 +1,160 @@
+"""Configuration dataclasses (counterpart of lbm_tpu/config.py).
+
+Same fields, defaults and validation as the JAX package's PlasmaConfig,
+with two differences: `dtype` is a torch.dtype, and `backend` is "plain"
+(eager torch ops, the counterpart of "jnp") or "fused" (the hand-written
+CUDA collide+stream kernel). The JAX-only `kernel_interpret` switch has no
+counterpart: a CUDA kernel has no interpret mode.
+
+Configurations that the port does not run yet are still constructible;
+models/plasma.check_supported refuses them with NotImplementedError naming
+the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+import torch
+
+from .units import LatticeUnits, compute_lattice_units
+
+
+class PoissonSolver(enum.Enum):
+    """Field-solver choices (reference: include/poisson.hpp PoissonType)."""
+
+    NONE = 0
+    GS = 1    # Gauss-Seidel, red-black
+    SOR = 2   # successive over-relaxation, red-black
+    FFT = 3   # spectral (periodic only)
+    NPS = 4   # 9-point stencil, 4-color
+
+
+class BC(enum.Enum):
+    """Streaming boundary conditions (reference: include/streaming.hpp BCType)."""
+
+    PERIODIC = 0
+    BOUNCE_BACK = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CompatFlags:
+    """Replicate-or-fix switches for the reference's behavioral quirks
+    (see lbm_tpu/config.py for what each one replicates)."""
+
+    none_solver_kills_external_field: bool = True
+    dirichlet_iterative_under_periodic: bool = True
+    macro_guards: bool = True
+    debug_variant: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PlasmaConfig:
+    """Three-population D2Q9 plasma configuration.
+
+    Defaults are the reference golden run (src/main_plasma.cpp:16-51):
+    200x200 grid, 200 steps, hydrogen ions, FFT Poisson, periodic BCs.
+    """
+
+    NX: int = 200
+    NY: int = 200
+    NZ: int = 0            # 0 => 2-D (D2Q9); >0 => 3-D column (D3Q19)
+    nsteps: int = 200
+
+    Z_ion: int = 1
+    A_ion: int = 1
+    n_e_SI: float = 1e11   # [m^-3]
+    n_n_SI: float = 1e18   # [m^-3]
+    T_e_SI: float = 1e4    # [K]
+    T_i_SI: float = 300.0  # [K]
+    T_n_SI: float = 300.0  # [K]
+    Ex_SI: float = 1e-2    # [V/m]
+    Ey_SI: float = 0.0     # [V/m]
+
+    poisson: PoissonSolver = PoissonSolver.FFT
+    bc: BC = BC.PERIODIC
+    omega_sor: float = 1.8
+    poisson_max_iter: int = 5000
+    poisson_tol: float = 1e-8
+
+    # BGK relaxation times, fixed (reference: src/collisions.cpp:6-7).
+    tau_e: float = 5.0
+    tau_i: float = 3.0
+    tau_n: float = 1.0
+    tau_ei: float = 6.0
+    tau_en: float = 4.0
+    tau_in: float = 2.0
+
+    # compute dtype of the fields and of all arithmetic
+    dtype: torch.dtype = torch.float32
+    compat: CompatFlags = CompatFlags()
+
+    # "plain": eager torch ops; "fused": one CUDA kernel for collide+stream
+    # (on CPU tensors the kernel's plain version runs instead)
+    backend: str = "plain"
+
+    # store the neutral mass populations as deltas from the uniform
+    # background rho_n_init * w_i (rescues the f32 neutral channel)
+    neutral_delta: bool = False
+
+    fft_engine: str = "auto"  # "auto" | "xla" | "pallas"
+    iter_engine: str = "auto"  # "auto" | "xla" | "pallas"
+    multistep: int = 0
+
+    # population STORAGE precision for f and g; arithmetic stays in dtype
+    storage: str = "native"  # "native" | "bf16"
+
+    def __post_init__(self):
+        if self.storage not in ("native", "bf16"):
+            raise ValueError(f"storage must be 'native' or 'bf16', "
+                             f"got {self.storage!r}")
+        if self.backend not in ("plain", "pallas", "fused"):
+            raise ValueError(f"backend must be plain|pallas|fused, "
+                             f"got {self.backend!r}")
+        if self.fft_engine not in ("auto", "xla", "pallas"):
+            raise ValueError(f"fft_engine must be auto|xla|pallas, "
+                             f"got {self.fft_engine!r}")
+        if self.iter_engine not in ("auto", "xla", "pallas"):
+            raise ValueError(f"iter_engine must be auto|xla|pallas, "
+                             f"got {self.iter_engine!r}")
+        if self.multistep:
+            if self.multistep < 0:
+                raise ValueError(f"multistep must be >= 0, "
+                                 f"got {self.multistep}")
+            if self.backend != "fused":
+                raise ValueError("multistep is a fused-kernel mode")
+            if self.NZ and self.poisson != PoissonSolver.NONE:
+                raise ValueError("3-D multistep supports the NONE solver "
+                                 "only (window-constant E)")
+            if self.compat.debug_variant:
+                raise ValueError("multistep is incompatible with "
+                                 "debug_variant (jnp-only mode)")
+
+    def units(self) -> LatticeUnits:
+        return compute_lattice_units(
+            Z_ion=self.Z_ion, A_ion=self.A_ion,
+            n_e_SI=self.n_e_SI, n_n_SI=self.n_n_SI,
+            T_e_SI=self.T_e_SI, T_i_SI=self.T_i_SI, T_n_SI=self.T_n_SI,
+            Ex_SI=self.Ex_SI, Ey_SI=self.Ey_SI,
+        )
+
+    @property
+    def taus(self) -> Tuple[float, float, float, float, float, float]:
+        return (self.tau_e, self.tau_i, self.tau_n,
+                self.tau_ei, self.tau_en, self.tau_in)
+
+
+def preset_golden_plasma() -> PlasmaConfig:
+    """Config #1: 200x200, 200 steps, FFT+Periodic (the C++ golden run)."""
+    return PlasmaConfig()
+
+
+def preset_plasma_1024() -> PlasmaConfig:
+    """Config #3: 1024^2 plasma, on-device FFT Poisson, single device."""
+    return PlasmaConfig(NX=1024, NY=1024, nsteps=100)
+
+
+def preset_plasma_4096() -> PlasmaConfig:
+    """Config #4: 4096^2 plasma (the reference's multi-device size)."""
+    return PlasmaConfig(NX=4096, NY=4096, nsteps=100)

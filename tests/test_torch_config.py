@@ -1,0 +1,91 @@
+"""lbm_tpu_torch config and units against lbm_tpu's, field by field."""
+import dataclasses
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from lbm_tpu import config as jcfg
+from lbm_tpu_torch import config as tcfg
+from lbm_tpu_torch.models import plasma as tplasma
+
+torch.set_num_threads(1)
+
+PRESETS = ["preset_golden_plasma", "preset_plasma_1024", "preset_plasma_4096"]
+# fields whose values are spelled differently in the two packages
+_MAPPED = {"dtype", "backend", "kernel_interpret"}
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_preset_fields_match(preset):
+    j, t = getattr(jcfg, preset)(), getattr(tcfg, preset)()
+    jf = {f.name for f in dataclasses.fields(j)}
+    tf = {f.name for f in dataclasses.fields(t)}
+    assert jf - tf == {"kernel_interpret"}   # no interpret mode in CUDA
+    assert tf <= jf
+    for name in sorted(tf - _MAPPED):
+        want = getattr(j, name)
+        if name == "compat":
+            want = dataclasses.asdict(want)
+            got = dataclasses.asdict(t.compat)
+        elif name in ("poisson", "bc"):
+            want, got = want.name, getattr(t, name).name
+        else:
+            got = getattr(t, name)
+        assert got == want, name
+    assert t.dtype == torch.float32 and jnp.dtype(j.dtype).name == "float32"
+    assert (j.backend, t.backend) == ("jnp", "plain")
+    assert t.taus == j.taus
+
+
+@pytest.mark.parametrize("fields", [
+    {},
+    {"Z_ion": 2, "A_ion": 4},
+    {"n_e_SI": 3e12, "T_e_SI": 2.5e4, "Ex_SI": 0.3, "Ey_SI": -0.1},
+    {"n_n_SI": 1e16, "T_i_SI": 450.0, "T_n_SI": 280.0},
+])
+def test_lattice_units_match_bit_for_bit(fields):
+    j = dataclasses.replace(jcfg.PlasmaConfig(), **fields).units()
+    t = dataclasses.replace(tcfg.PlasmaConfig(), **fields).units()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("bad", [
+    {"storage": "bfloat16"},
+    {"fft_engine": "cufft"},
+    {"iter_engine": "gpu"},
+    {"multistep": -1, "backend": "fused"},
+    {"multistep": 4},            # multistep needs the fused backend
+])
+def test_validation_matches(bad):
+    with pytest.raises(ValueError):
+        dataclasses.replace(jcfg.PlasmaConfig(), **bad)
+    with pytest.raises(ValueError):
+        dataclasses.replace(tcfg.PlasmaConfig(), **bad)
+
+
+def test_backend_names():
+    with pytest.raises(ValueError):
+        tcfg.PlasmaConfig(backend="jnp")
+    for b in ("plain", "fused", "pallas"):
+        assert tcfg.PlasmaConfig(backend=b).backend == b
+
+
+@pytest.mark.parametrize("fields, item", [
+    ({"bc": tcfg.BC.BOUNCE_BACK}, "Queue 1 item 8"),
+    ({"poisson": tcfg.PoissonSolver.GS}, "Queue 1 item 8"),
+    ({"poisson": tcfg.PoissonSolver.SOR}, "Queue 1 item 8"),
+    ({"poisson": tcfg.PoissonSolver.NPS}, "Queue 1 item 8"),
+    ({"poisson": tcfg.PoissonSolver.NONE}, "Queue 1 item 8"),
+    ({"multistep": 4, "backend": "fused"}, "Queue 1 item 11"),
+    ({"fft_engine": "pallas"}, "Queue 2 item 11"),
+    ({"compat": tcfg.CompatFlags(debug_variant=True)}, "Queue 1 item 9"),
+    ({"backend": "pallas"}, "Queue 2 item 2"),
+    ({"NZ": 16}, "Queue 1 item 12"),
+])
+def test_unsupported_configs_raise(fields, item):
+    cfg = dataclasses.replace(tcfg.PlasmaConfig(NX=8, NY=8), **fields)
+    with pytest.raises(NotImplementedError, match=item):
+        tplasma.make_step(cfg)
+    with pytest.raises(NotImplementedError, match=item):
+        tplasma.init_state(cfg, "cpu")
