@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the golden plasma run, on the card and
-fails (nonzero exit) if any phase fails:
+Drives the port's paths on the card and fails (nonzero exit) if any
+phase fails:
 
   1. environment: nvidia-smi's name and power limit, torch, CUDA, nvcc;
   2. build: compiles the CUDA kernels from lbm_tpu_torch/kernels/csrc;
   3. kernel vs plain: one collide_stream call each way on the same seeded
      state, at 37x53 and 200x200, in f64, f32 and bf16 storage, with and
      without neutral-delta storage, each within its stated tolerance;
+  3b. solve kernel vs plain sweeps: GS, SOR (omega 1.8) and NPS, interior-
+     only and periodic, f64 and f32, at 37x53, 200x200 and 1024x1024, with
+     tol 0 / 60 sweeps and with tol 1e-8 / max 5000 sweeps on the rho_q of
+     a step, and a phi0 holding a NaN: phi and the sweep count bitwise;
+  3c. collide-only kernel vs its plain version: f64 and f32, with and
+     without neutral-delta storage, at 37x53 and 200x200, at phase 3's
+     tolerances;
   4. golden run: lbm_tpu_torch.run_plasma.main at 200x200 for 200 steps in
      f64 through the kernel; its 19 probe series must match the compiled
      C++ reference fixture at rtol 1e-5 / atol 1e-5*scale, with exactly
      one kernel launch per step;
+  4b. SOR + bounce-back: the CLI at 200x200 for 50 steps in f64 with the
+     fused, pallas and plain backends; fused and pallas against plain at
+     rtol 1e-12 / atol 1e-14*scale, with one launch of each of their
+     kernels per step;
   5. real size: 2048^2 in f32 and in bf16 + neutral-delta storage, 5 warm-up
-     and 30 timed steps (CUDA events); the state must stay finite.
+     and 30 timed steps (CUDA events); the state must stay finite;
+  5b. real sizes of the other solvers and walls: 1024^2 f32 SOR +
+     bounce-back + delta (fused), 256^2 f32 GS (fused), 4096^2 bf16 + delta
+     NONE (fused), 2048^2 f32 FFT (pallas); ms/step, MLUPS, each kernel's
+     ms and its plain version's, sweeps per solve; the state must stay
+     finite.
 
-The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launch count on the golden run, its worst error against its plain
-version there, and its time beside the plain version's at 2048^2 f32; the
-last line is {"ok": true, "device": {...}}. Needs no JAX.
+The line before the last is a JSON object {"kernels": [...]}: for each
+kernel its launch count on its CLI run (phase 4 or 4b, counts reset
+before the run), its worst error against its plain version, its time
+beside the plain version's and beside its bound at the main path's
+shapes. The last line is {"ok": true, "device": {...}}. Needs no JAX.
 """
 from __future__ import annotations
 
@@ -41,9 +58,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures",
                        "ref_probes_200x200_200steps_fft.csv.gz")
 OUT = os.path.join(HERE, "build", "output", "chip_smoke")
-KERNEL_SOURCE = "lbm_tpu_torch/kernels/csrc/fused_step.cu"
-KERNEL_REPLACES = "lbm_tpu/kernels/fused_step.py:685"
+CSRC = "lbm_tpu_torch/kernels/csrc/"
 BYTES_PER_SITE = {"native": 432, "bf16": 216}   # f+g read and write
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM (data sheet)
+F32_FLOP_PER_S = 67e12         # non-tensor f32
+F64_FLOP_PER_S = 34e12         # non-tensor f64
+# flop per updated site and sweep: the stencil, then |new - p| and the max
+SWEEP_FLOP = {("gs", False): 8, ("gs", True): 11, ("nps", False): 14}
 
 
 class SmokeFailure(RuntimeError):
@@ -164,34 +185,51 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+# (label, dtype, storage, neutral_delta, rtol, atol*scale)
+COLLIDE_MODES = [
+    ("f64", "float64", "native", False, 1e-12, 1e-14),
+    ("f64+delta", "float64", "native", True, 1e-12, 1e-14),
+    ("f32", "float32", "native", False, 1e-5, 1e-6),
+    ("f32+delta", "float32", "native", True, 1e-5, 1e-6),
+    ("bf16", "float32", "bf16", False, None, None),
+    ("bf16+delta", "float32", "bf16", True, None, None),
+]
+
+
+def phys_of(cfg):
+    u = cfg.units()
+    return dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
+                cs2=u.cs2, kb=u.kb,
+                neutral_ref=u.rho_n_init if cfg.neutral_delta else 0.0)
+
+
 def phase_kernel_vs_plain():
-    import torch
-    from lbm_tpu_torch.config import PlasmaConfig
     from lbm_tpu_torch.kernels import fused_step
 
     print("== phase 3: kernel vs plain version on the card")
+    return _collide_vs_plain(fused_step.collide_stream,
+                             fused_step.collide_stream_reference,
+                             COLLIDE_MODES)
+
+
+def _collide_vs_plain(kernel_fn, plain_fn, modes):
+    """Both versions on the same seeded state at 37x53 and 200x200 in each
+    mode; returns the worst max|err| at 200x200 f64."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+
     device = torch.device("cuda")
-    modes = [  # (label, dtype, storage, neutral_delta, rtol, atol*scale)
-        ("f64", torch.float64, "native", False, 1e-12, 1e-14),
-        ("f64+delta", torch.float64, "native", True, 1e-12, 1e-14),
-        ("f32", torch.float32, "native", False, 1e-5, 1e-6),
-        ("f32+delta", torch.float32, "native", True, 1e-5, 1e-6),
-        ("bf16", torch.float32, "bf16", False, None, None),
-        ("bf16+delta", torch.float32, "bf16", True, None, None),
-    ]
     golden_err = None
     for ny, nx in ((37, 53), (200, 200)):
         for label, dtype, storage, delta, rtol, atol in modes:
-            cfg = PlasmaConfig(NX=nx, NY=ny, dtype=dtype, storage=storage,
-                               neutral_delta=delta, backend="fused")
-            u = cfg.units()
-            phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
-                        m_i=u.m_i, cs2=u.cs2, kb=u.kb,
-                        neutral_ref=u.rho_n_init if delta else 0.0)
+            cfg = PlasmaConfig(NX=nx, NY=ny, dtype=getattr(torch, dtype),
+                               storage=storage, neutral_delta=delta,
+                               backend="fused")
+            phys = phys_of(cfg)
             st = _seeded_state(cfg, device, seed=ny * 1000 + nx)
             args = (st.f, st.g, st.Ex, st.Ey)
-            k_out = fused_step.collide_stream(*args, **phys)
-            p_out = fused_step.collide_stream_reference(*args, **phys)
+            k_out = kernel_fn(*args, **phys)
+            p_out = plain_fn(*args, **phys)
             torch.cuda.synchronize()
             line = []
             worst_abs = 0.0
@@ -212,14 +250,85 @@ def phase_kernel_vs_plain():
                             f"{tol}), bitwise {100 * same:.2f}%")
                 require(ratio <= 1.0, f"{label} {ny}x{nx} {name}: error "
                         f"{ratio:.3f} x the tolerance ({tol})")
-            ms = _time_ms(lambda: fused_step.collide_stream(*args, **phys), 20)
-            plain_ms = _time_ms(
-                lambda: fused_step.collide_stream_reference(*args, **phys), 5)
+            ms = _time_ms(lambda: kernel_fn(*args, **phys), 20)
+            plain_ms = _time_ms(lambda: plain_fn(*args, **phys), 5)
             print(f"{label:>10} {ny}x{nx}: " + "; ".join(line)
                   + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if (ny, nx, label) == (200, 200, "f64"):
                 golden_err = worst_abs
     return golden_err
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def phase_solve_kernel():
+    """Phase 3b; returns the worst max|err| (0: every case is bitwise)."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_step, poisson_iter
+    from lbm_tpu_torch.ops import poisson
+
+    print("== phase 3b: solve kernel vs plain sweeps, bitwise")
+    device = torch.device("cuda")
+    kinds = [("gs", None), ("gs", 1.8), ("nps", None)]
+    for ny, nx in ((37, 53), (200, 200), (1024, 1024)):
+        for dtype in (torch.float64, torch.float32):
+            rng = np.random.default_rng(ny * nx)
+            rho = 0.1 * rng.random((ny, nx))
+            rho -= rho.mean()
+            seeded = (torch.as_tensor(0.05 * rng.random((ny, nx)),
+                                      dtype=dtype, device=device),
+                      torch.as_tensor(rho, dtype=dtype, device=device))
+            # the rho_q of a step from a seeded state, solved from phi = 0
+            cfg = PlasmaConfig(NX=nx, NY=ny, dtype=dtype, neutral_delta=True)
+            st = _seeded_state(cfg, device, seed=ny + nx, warm_steps=1)
+            rho_q = fused_step.collide_stream(st.f, st.g, st.Ex, st.Ey,
+                                              **phys_of(cfg))[2]
+            runs = [("seeded", seeded, 60, 0.0),
+                    ("step", (torch.zeros_like(rho_q), rho_q), 5000, 1e-8)]
+            if (ny, nx) == (37, 53):
+                nan_phi = seeded[0].clone()
+                nan_phi[ny // 2, nx // 2] = float("nan")
+                runs.append(("NaN", (nan_phi, seeded[1]), 5000, 1e-8))
+            line = []
+            for kind, omega in kinds:
+                for interior in (False, True):
+                    for label, (phi0, rq), max_iter, tol in runs:
+                        spec = (kind, omega, max_iter, tol, interior)
+                        got = poisson_iter.solve_iter(phi0, rq, spec=spec)
+                        n_kernel = int(poisson_iter.LAST_SWEEPS)
+                        want = poisson_iter.solve_iter_reference(phi0, rq,
+                                                                 spec=spec)
+                        n_plain = poisson.LAST_SWEEPS
+                        tag = (f"{kind}{'' if omega is None else '-sor'}/"
+                               f"{'int' if interior else 'per'}/{label}")
+                        name = f"{ny}x{nx} {dtype} {tag}"
+                        require(n_kernel == n_plain, f"{name}: {n_kernel} "
+                                f"kernel sweeps vs {n_plain} plain")
+                        require(label != "NaN" or n_kernel == 1,
+                                f"{name}: {n_kernel} sweeps, want 1")
+                        if not torch.equal(_bits(got), _bits(want)):
+                            err = float((got - want).abs().nan_to_num(
+                                float("inf")).max())
+                            raise SmokeFailure(f"{name}: kernel differs from "
+                                               f"the plain sweeps, max|err| "
+                                               f"{err:.3e}")
+                        line.append(f"{tag} {n_kernel}")
+            print(f"{ny}x{nx} {str(dtype)[6:]}: bitwise; sweeps "
+                  + ", ".join(line))
+    return 0.0
+
+
+def phase_collide_kernel():
+    from lbm_tpu_torch.kernels import collide_pallas, fused_step
+
+    print("== phase 3c: collide-only kernel vs plain version on the card")
+    return _collide_vs_plain(collide_pallas.fused_collide,
+                             fused_step.collide_reference,
+                             [m for m in COLLIDE_MODES if m[2] == "native"])
 
 
 def _parse_probe_fixture(path):
@@ -265,6 +374,60 @@ def phase_golden():
           f"{summary['wall_ms'] / 200:.3f} ms/step with probes "
           f"({summary['mlups']:.2f} MLUPS)")
     return launches
+
+
+def _reset_launches():
+    from lbm_tpu_torch.run_plasma import KERNELS
+    for mod in KERNELS.values():
+        mod.LAUNCHES = 0
+
+
+def phase_sor_bounceback():
+    """Phase 4b; returns the launch counts of the fused and pallas runs."""
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.kernels import poisson_iter
+    from lbm_tpu_torch.ops import poisson
+
+    print("== phase 4b: 200x200 f64 SOR + bounce-back, 50 steps, CLI")
+    steps, runs, sweeps = 50, {}, {}
+    for backend in ("fused", "pallas", "plain"):
+        _reset_launches()
+        runs[backend] = run_plasma.main([
+            "--nx", "200", "--ny", "200", "--steps", str(steps), "--f64",
+            "--poisson", "SOR", "--bc", "bounceback", "--backend", backend,
+            "--device", "cuda", "--out",
+            os.path.join(OUT, f"sor_bb_{backend}")])
+        require(runs[backend]["finite"], f"{backend}: state not finite")
+        sweeps[backend] = (poisson.LAST_SWEEPS if backend == "plain"
+                           else int(poisson_iter.LAST_SWEEPS))
+    want_launches = {
+        "fused": {"collide_stream": steps, "fused_collide": 0,
+                  "solve_iter": steps},
+        "pallas": {"collide_stream": 0, "fused_collide": steps,
+                   "solve_iter": steps},
+        "plain": {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0}}
+    for backend, summary in runs.items():
+        require(summary["launches"] == want_launches[backend],
+                f"{backend}: launches {summary['launches']}, want "
+                f"{want_launches[backend]}")
+    plain = runs["plain"]["state"]
+    for backend in ("fused", "pallas"):
+        state = runs[backend]["state"]
+        line = []
+        for name in ("f", "g", "phi", "Ex", "Ey"):
+            mx, ratio, same = _errors(getattr(state, name),
+                                      getattr(plain, name), 1e-12, 1e-14)
+            line.append(f"{name} {mx:.3e} ({100 * same:.1f}% bitwise)")
+            require(ratio <= 1.0, f"{backend} vs plain {name}: {ratio:.3f} "
+                    f"x the rtol 1e-12 / atol 1e-14*scale gate")
+        print(f"{backend} vs plain after {steps} steps: " + "; ".join(line)
+              + f"; {runs[backend]['wall_ms'] / steps:.3f} ms/step with "
+              f"probes")
+    print(f"plain: {runs['plain']['wall_ms'] / steps:.3f} ms/step with "
+          f"probes; launches fused {runs['fused']['launches']}, pallas "
+          f"{runs['pallas']['launches']}; sweeps of the last solve {sweeps}")
+    return {"fused_collide": runs["pallas"]["launches"]["fused_collide"],
+            "solve_iter": runs["fused"]["launches"]["solve_iter"]}
 
 
 def phase_real_size():
@@ -327,20 +490,151 @@ def phase_real_size():
     return timings
 
 
+def _window(step, state, warm, steps):
+    """warm + steps steps; returns (state, ms/step over the last steps)."""
+    import torch
+    for _ in range(warm):
+        state = step(state)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(steps):
+        state = step(state)
+    t1.record()
+    torch.cuda.synchronize()
+    return state, t0.elapsed_time(t1) / steps
+
+
+def _solve_bound_ms(spec, sweeps, sites, dtype):
+    """(least ms, "bytes" or "operations") of a solve: phi0 and rho_q read
+    once and phi written once, against the flop of the sweeps it ran."""
+    import torch
+    itemsize = torch.finfo(dtype).bits // 8
+    t_bytes = 3 * sites * itemsize / HBM_BYTES_PER_S * 1e3
+    flop = SWEEP_FLOP[(spec[0], spec[1] is not None)] * sweeps * sites
+    t_ops = flop / (F32_FLOP_PER_S if dtype == torch.float32
+                    else F64_FLOP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_real_size_solvers():
+    """Phase 5b; returns {kernel: (ms, plain_ms, bound_ms, bound_by, at)}
+    from the first cell that runs it: solve_iter at 1024^2 f32 SOR +
+    bounce-back, fused_collide at 2048^2 f32."""
+    import torch
+    from lbm_tpu_torch.config import BC, PlasmaConfig, PoissonSolver
+    from lbm_tpu_torch.kernels import collide_pallas, fused_step, poisson_iter
+    from lbm_tpu_torch.models import plasma
+
+    print("== phase 5b: real sizes of the other solvers and walls")
+    device = torch.device("cuda")
+    f32 = torch.float32
+    cells = [  # label, n, storage, delta, poisson, bc, backend, warm, steps
+        ("1024^2 f32 SOR+bounceback+delta fused", 1024, "native", True,
+         PoissonSolver.SOR, BC.BOUNCE_BACK, "fused", 2, 10),
+        ("256^2 f32 GS periodic fused", 256, "native", False,
+         PoissonSolver.GS, BC.PERIODIC, "fused", 2, 10),
+        ("4096^2 bf16+delta NONE periodic fused", 4096, "bf16", True,
+         PoissonSolver.NONE, BC.PERIODIC, "fused", 5, 30),
+        ("2048^2 f32 FFT periodic pallas", 2048, "native", False,
+         PoissonSolver.FFT, BC.PERIODIC, "pallas", 5, 30),
+    ]
+    out = {}
+    for label, n, storage, delta, sol, bc, backend, warm, steps in cells:
+        cfg = PlasmaConfig(NX=n, NY=n, dtype=f32, storage=storage,
+                           neutral_delta=delta, poisson=sol, bc=bc,
+                           backend=backend)
+        phys = phys_of(cfg)
+        step = plasma.make_step(cfg)
+        state, step_ms = _window(step, plasma.init_state(cfg, device), warm,
+                                 steps)
+        require(all(bool(torch.isfinite(t.float()).all())
+                    for t in (state.f, state.g, state.Ex, state.Ey,
+                              state.phi)),
+                f"{label}: state not finite after {warm + steps} steps")
+        args = (state.f, state.g, state.Ex, state.Ey)
+        parts = [f"{step_ms:.4f} ms/step, "
+                 f"{n * n / (step_ms * 1e-3) / 1e6:.1f} MLUPS "
+                 f"(window {warm}+{steps} steps)"]
+        if backend == "pallas":
+            ms = _time_ms(lambda: collide_pallas.fused_collide(*args, **phys),
+                          steps)
+            plain_ms = _time_ms(
+                lambda: fused_step.collide_reference(*args, **phys), 3)
+            bound = 444 * n * n / HBM_BYTES_PER_S * 1e3
+            parts.append(f"fused_collide {ms:.4f} ms (bound {bound:.4f} ms; "
+                         f"plain {plain_ms:.4f} ms)")
+            out.setdefault("fused_collide", (ms, plain_ms, bound, "bytes",
+                                             f"{n}x{n} f32"))
+        else:
+            ms = _time_ms(lambda: fused_step.collide_stream(*args, **phys),
+                          steps)
+            parts.append(f"collide_stream {ms:.4f} ms")
+        if sol in (PoissonSolver.GS, PoissonSolver.SOR, PoissonSolver.NPS):
+            rho_q = fused_step.collide_stream(*args, **phys)[2]
+            spec = ("nps" if sol == PoissonSolver.NPS else "gs",
+                    cfg.omega_sor if sol == PoissonSolver.SOR else None,
+                    cfg.poisson_max_iter, cfg.poisson_tol, True)
+            phi0 = state.phi
+            poisson_iter.solve_iter(phi0, rho_q, spec=spec)
+            sweeps = int(poisson_iter.LAST_SWEEPS)
+            ms = _time_ms(
+                lambda: poisson_iter.solve_iter(phi0, rho_q, spec=spec), 3)
+            t0 = time.perf_counter()
+            poisson_iter.solve_iter_reference(phi0, rho_q, spec=spec)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            bound, bound_by = _solve_bound_ms(spec, sweeps, n * n, f32)
+            parts.append(f"solve_iter {ms:.4f} ms for {sweeps} sweeps "
+                         f"({1e3 * ms / max(sweeps, 1):.3f} us/sweep; bound "
+                         f"{bound:.4f} ms by {bound_by}; plain sweeps "
+                         f"{plain_ms:.1f} ms, 1 call)")
+            out.setdefault("solve_iter", (ms, plain_ms, bound, bound_by,
+                                          f"{n}x{n} f32 {sweeps} sweeps"))
+        print(f"{label}: " + "; ".join(parts))
+        del state, args, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     phase_environment()
     phase_build()
     golden_err = phase_kernel_vs_plain()
-    launches = phase_golden()
+    solve_err = phase_solve_kernel()
+    collide_err = phase_collide_kernel()
+    launches = {"collide_stream": phase_golden()}
+    launches.update(phase_sor_bounceback())
     timings = phase_real_size()
-    print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "collide_stream", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
+    others = phase_real_size_solvers()
+    n = 2048
+    kernels = [{
+        "name": "collide_stream", "route": "cuda",
+        "source": CSRC + "fused_step.cu",
+        "replaces": "lbm_tpu/kernels/fused_step.py:685",
+        "launches": launches["collide_stream"],
         "max_abs_err": golden_err, "max_abs_err_at": "200x200 f64",
         "ms": timings["native"], "plain_ms": timings["plain"],
-        "ms_at": "2048x2048 f32"}]}))
+        "bound_ms": 444 * n * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "ms_at": "2048x2048 f32"}]
+    for name, source, replaces, err, err_at in (
+            ("solve_iter", "poisson_iter.cu",
+             "lbm_tpu/kernels/poisson_iter.py:59", solve_err,
+             "phase 3b, every case"),
+            ("fused_collide", "fused_step.cu",
+             "lbm_tpu/kernels/collide_pallas.py:78", collide_err,
+             "200x200 f64")):
+        ms, plain_ms, bound, bound_by, at = others[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "max_abs_err_at": err_at, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "ms_at": at})
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

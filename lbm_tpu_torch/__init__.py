@@ -3,9 +3,9 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 A port of lbm_tpu (JAX/Pallas, the reference, which stays beside it):
 same state layout, same physics expression trees, same guards. It imports
-torch and numpy, never JAX. The golden configuration (D2Q9, three species
-with DDF thermal populations, FFT Poisson, periodic BCs) runs end to end;
-see ROADMAP.md for the rest.
+torch and numpy, never JAX. The 2-D plasma (D2Q9, three species with DDF
+thermal populations) runs end to end under every Poisson solver and both
+wall types; see ROADMAP.md for the rest.
 """
 
 from . import config, constants, units  # noqa: F401

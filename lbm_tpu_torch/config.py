@@ -2,9 +2,11 @@
 
 Same fields, defaults and validation as the JAX package's PlasmaConfig,
 with two differences: `dtype` is a torch.dtype, and `backend` is "plain"
-(eager torch ops, the counterpart of "jnp") or "fused" (the hand-written
-CUDA collide+stream kernel). The JAX-only `kernel_interpret` switch has no
-counterpart: a CUDA kernel has no interpret mode.
+(eager torch ops, the counterpart of "jnp"), "fused" (the hand-written
+CUDA collide+stream kernel) or "pallas" (the collide-only CUDA kernel,
+streaming in torch; the name is the JAX package's). The JAX-only
+`kernel_interpret` switch has no counterpart: a CUDA kernel has no
+interpret mode.
 
 Configurations that the port does not run yet are still constructible;
 models/plasma.check_supported refuses them with NotImplementedError naming
@@ -90,8 +92,9 @@ class PlasmaConfig:
     dtype: torch.dtype = torch.float32
     compat: CompatFlags = CompatFlags()
 
-    # "plain": eager torch ops; "fused": one CUDA kernel for collide+stream
-    # (on CPU tensors the kernel's plain version runs instead)
+    # "plain": eager torch ops; "fused": one CUDA kernel for collide+stream;
+    # "pallas": the collide-only CUDA kernel (on CPU tensors each kernel's
+    # plain version runs instead)
     backend: str = "plain"
 
     # store the neutral mass populations as deltas from the uniform
@@ -99,7 +102,9 @@ class PlasmaConfig:
     neutral_delta: bool = False
 
     fft_engine: str = "auto"  # "auto" | "xla" | "pallas"
-    iter_engine: str = "auto"  # "auto" | "xla" | "pallas"
+    # iterative solve: "xla" = the plain sweeps, "pallas" = the CUDA
+    # kernel, "auto" = the kernel on the fused and pallas backends
+    iter_engine: str = "auto"
     multistep: int = 0
 
     # population STORAGE precision for f and g; arithmetic stays in dtype

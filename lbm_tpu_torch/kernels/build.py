@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc into one shared library.
 
 The sources csrc/*.cu export a plain C interface and are compiled by
-hand (no torch headers, so a build takes seconds) into
+hand (no torch headers, so a build takes seconds), one nvcc per source,
+all started together, then linked into
 build/torch_kernels/<hash>/liblbm_kernels.so under the repository root,
 keyed by a hash of the sources and flags, at first use. The library is
 loaded with ctypes. A missing nvcc or a failed build raises with the
@@ -25,8 +26,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "liblbm_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 class KernelBuildError(RuntimeError):
@@ -59,6 +61,21 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; returns (log, all succeeded)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, ok = "", True
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log += (f"$ {' '.join(cmd)}\n{out}"
+                f"[{time.perf_counter() - t0:.1f} s, rc={proc.returncode}]\n")
+        ok = ok and proc.returncode == 0
+    return log, ok
+
+
 def build(build_root: Path = BUILD_ROOT) -> Path:
     """Compile csrc/*.cu unless a library with the same hash exists;
     returns its path. The compiler's log lands beside it (build.log)."""
@@ -68,28 +85,46 @@ def build(build_root: Path = BUILD_ROOT) -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"[{time.perf_counter() - t0:.1f} s, rc={proc.returncode}]\n")
+    tag = os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    log, ok = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(_sources(), objs)])
+    if ok:
+        link_log, ok = _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        log += link_log
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if not ok:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed (rc={proc.returncode}):\n{log}")
+        raise KernelBuildError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
     return lib
+
+
+_VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# every function the library exports (all return int): an undeclared
+# pointer argument would be cut to 32 bits
+SIGNATURES = {
+    # mode, delta, f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX, params, stream
+    "lbm_collide_stream": [_CI, _CI, *[_VP] * 7, _CI, _CI, _VP, _VP],
+    "lbm_collide": [_CI, _CI, *[_VP] * 7, _CI, _CI, _VP, _VP],
+    "lbm_host_params_size": [],
+    # dtype, kind, interior_only, omega, max_iter, tol, phi0, rho, scratch,
+    # out, err_ring, sweeps, NY, NX, stream
+    "lbm_solve_iter": [_CI, _CI, _CI, _CD, _CI, _CD, *[_VP] * 6, _CI, _CI,
+                       _VP],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """The built library with every exported function's signature declared."""
     lib = ctypes.CDLL(str(build()))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lbm_collide_stream.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp,
-                                       ci, ci, vp, vp]
-    lib.lbm_collide_stream.restype = ci
-    lib.lbm_host_params_size.argtypes = []
-    lib.lbm_host_params_size.restype = ci
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

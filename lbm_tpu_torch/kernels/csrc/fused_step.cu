@@ -1,8 +1,10 @@
 // Periodic D2Q9 collide + push-stream for the three-species plasma, one
-// pass over device memory per step.
+// pass over device memory per step, and the same kernel without the stream.
 //
 // Replaces lbm_tpu/kernels/fused_step.py:collide_stream (the Pallas kernel
-// body _make_kernel). It computes what that kernel computes, which is
+// body _make_kernel) and, with STREAM = false (entry lbm_collide),
+// lbm_tpu/kernels/collide_pallas.py:fused_collide, which collides only and
+// leaves streaming to the caller. It computes what that kernel computes, which is
 // lbm_tpu/ops/macros.update_macro + ops/equilibrium + ops/collide +
 // periodic push-streaming, and returns rho_q. It is not the TPU's band
 // pipeline carried over: one thread owns one lattice site, with x fastest,
@@ -15,7 +17,8 @@
 //   * builds each species' three w-polynomial sets when it needs them;
 //   * collides each species with the expression trees of ops/collide.py;
 //   * writes each post-collision value to ((y+cy) mod NY, (x+cx) mod NX) of
-//     the OUTPUT buffers, and rho_q at (y, x).
+//     the OUTPUT buffers (to (y, x) with STREAM = false), and rho_q at
+//     (y, x).
 // No in-place update: the TPU kernel aliases its outputs onto its inputs,
 // but a push-stream in place races on a GPU, so the wrapper hands in fresh
 // output buffers.
@@ -31,7 +34,7 @@
 // equality guards, and the native rounding is part of the golden
 // trajectory.
 //
-// Bound: every step reads and writes all of f and g, 27+27 values a site,
+// Bound: every call reads and writes all of f and g, 27+27 values a site,
 // which is 432 B/site in f32 (216 B/site in bf16) plus 12 B of Ex, Ey and
 // rho_q, against ~3,000 flop/site: memory-bound on an H100 in f32, close
 // to balanced in bf16. This first version does the minimum traffic (each
@@ -186,7 +189,8 @@ __device__ __forceinline__ void wpolys_dev(T ux, T uy, const Params<T>& p, T out
 
 // DELTA: the neutral's f holds deltas from neutral_ref * w_i.
 // FAST: bf16-storage mode, the partial-fraction thermal forms.
-template <typename S, typename T, bool DELTA, bool FAST>
+// STREAM: push-stream periodically; false stores each value at its site.
+template <typename S, typename T, bool DELTA, bool FAST, bool STREAM>
 __global__ void collide_stream_kernel(const S* __restrict__ f, const S* __restrict__ g,
                                       const T* __restrict__ Ex_in, const T* __restrict__ Ey_in,
                                       S* __restrict__ f_out, S* __restrict__ g_out,
@@ -387,34 +391,36 @@ __global__ void collide_stream_kernel(const S* __restrict__ f, const S* __restri
 
 #pragma unroll
     for (int i = 0; i < kQ; ++i) {
-      const int64_t dst = (s * kQ + i) * plane + row[cy_of(i) + 1] + col[cx_of(i) + 1];
+      const int64_t dst =
+          (s * kQ + i) * plane + (STREAM ? row[cy_of(i) + 1] + col[cx_of(i) + 1] : site);
       Io<S, T>::store(f_out + dst, fo[i]);
       Io<S, T>::store(g_out + dst, go[i]);
     }
   }
 }
 
-template <typename S, typename T, bool DELTA, bool FAST>
+template <typename S, typename T, bool DELTA, bool FAST, bool STREAM>
 cudaError_t launch(const void* f, const void* g, const void* Ex, const void* Ey, void* f_out,
                    void* g_out, void* rho_q, int NY, int NX, const HostParams& hp,
                    cudaStream_t stream) {
   constexpr int kThreads = 128;
   const int64_t sites = static_cast<int64_t>(NY) * NX;
   const unsigned blocks = static_cast<unsigned>((sites + kThreads - 1) / kThreads);
-  collide_stream_kernel<S, T, DELTA, FAST><<<blocks, kThreads, 0, stream>>>(
+  collide_stream_kernel<S, T, DELTA, FAST, STREAM><<<blocks, kThreads, 0, stream>>>(
       static_cast<const S*>(f), static_cast<const S*>(g), static_cast<const T*>(Ex),
       static_cast<const T*>(Ey), static_cast<S*>(f_out), static_cast<S*>(g_out),
       static_cast<T*>(rho_q), NY, NX, cast_params<T>(hp));
   return cudaGetLastError();
 }
 
-template <typename S, typename T, bool FAST>
+template <typename S, typename T, bool FAST, bool STREAM = true>
 cudaError_t launch_delta(int delta, const void* f, const void* g, const void* Ex,
                          const void* Ey, void* f_out, void* g_out, void* rho_q, int NY,
                          int NX, const HostParams& hp, cudaStream_t stream) {
-  return delta ? launch<S, T, true, FAST>(f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX, hp, stream)
-               : launch<S, T, false, FAST>(f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX, hp,
-                                           stream);
+  return delta ? launch<S, T, true, FAST, STREAM>(f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX,
+                                                  hp, stream)
+               : launch<S, T, false, FAST, STREAM>(f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX,
+                                                   hp, stream);
 }
 
 }  // namespace
@@ -438,6 +444,26 @@ extern "C" int lbm_collide_stream(int mode, int delta, const void* f, const void
                                                NX, *hp, st);
     case 2:
       return launch_delta<__nv_bfloat16, float, true>(delta, f, g, Ex, Ey, f_out, g_out, rho_q,
+                                                      NY, NX, *hp, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Collide only: as lbm_collide_stream, but every post-collision value is
+// stored at its own site. mode: 0 = f64, 1 = f32 (no bf16 storage, as the
+// TPU kernel).
+extern "C" int lbm_collide(int mode, int delta, const void* f, const void* g, const void* Ex,
+                           const void* Ey, void* f_out, void* g_out, void* rho_q, int NY,
+                           int NX, const HostParams* hp, void* stream) {
+  if (NY <= 0 || NX <= 0 || hp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0:
+      return launch_delta<double, double, false, false>(delta, f, g, Ex, Ey, f_out, g_out,
+                                                        rho_q, NY, NX, *hp, st);
+    case 1:
+      return launch_delta<float, float, false, false>(delta, f, g, Ex, Ey, f_out, g_out, rho_q,
                                                       NY, NX, *hp, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -102,47 +102,78 @@ def host_params(*, taus, q_e, q_i, m_e, m_i, cs2, kb,
     return p
 
 
-def collide_stream_reference(
+def collide_reference(
     f: torch.Tensor, g: torch.Tensor, Ex: torch.Tensor, Ey: torch.Tensor, *,
     taus, q_e: float, q_i: float, m_e: float, m_i: float,
     cs2: float, kb: float, neutral_ref: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: update_macro + collide + stream_periodic. Arithmetic
-    runs in Ex's dtype; bf16 storage takes the bf16 thermal forms with an
-    exact reciprocal and is rounded once, at the end."""
-    store = f.dtype
+    """update_macro + collide: (f_post, g_post, rho_q) in Ex's dtype; bf16
+    storage takes the bf16 thermal forms with an exact reciprocal."""
     fc, gc = f.to(Ex.dtype), g.to(Ex.dtype)
     mac = update_macro(fc, gc, Ex, Ey, q_e=q_e, q_i=q_i, m_e=m_e, m_i=m_i,
                        neutral_ref=neutral_ref)
     f_post, g_post = collide(
         fc, gc, mac, Ex, Ey, taus=taus, q_e=q_e, q_i=q_i, m_e=m_e, m_i=m_i,
         cs2=cs2, kb=kb, neutral_ref=neutral_ref,
-        g_recip=(lambda x: 1.0 / x) if store == torch.bfloat16 else None)
-    return (stream_periodic(f_post).to(store),
-            stream_periodic(g_post).to(store), mac.rho_q)
+        g_recip=(lambda x: 1.0 / x) if f.dtype == torch.bfloat16 else None)
+    return f_post, g_post, mac.rho_q
 
 
-def _check_inputs(f, g, Ex, Ey) -> int:
-    """Validate what the kernel takes; returns its mode."""
+def collide_stream_reference(f, g, Ex, Ey, **phys
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version: collide_reference + stream_periodic, rounded to the
+    storage dtype once, at the end."""
+    f_post, g_post, rho_q = collide_reference(f, g, Ex, Ey, **phys)
+    return (stream_periodic(f_post).to(f.dtype),
+            stream_periodic(g_post).to(g.dtype), rho_q)
+
+
+def _check_inputs(name, modes, f, g, Ex, Ey) -> int:
+    """Validate what the kernel takes; returns its mode from `modes`."""
     tensors = (f, g, Ex, Ey)
     devices = {t.device for t in tensors}
     if len(devices) != 1 or f.device.type != "cuda":
-        raise ValueError(f"collide_stream: f, g, Ex, Ey must lie on one CUDA "
+        raise ValueError(f"{name}: f, g, Ex, Ey must lie on one CUDA "
                          f"device (or all on the CPU), got {sorted(map(str, devices))}")
-    mode = _MODES.get((f.dtype, Ex.dtype))
+    mode = modes.get((f.dtype, Ex.dtype))
     if mode is None or g.dtype != f.dtype or Ey.dtype != Ex.dtype:
-        raise TypeError(f"collide_stream: unsupported dtypes f={f.dtype} "
+        raise TypeError(f"{name}: unsupported dtypes f={f.dtype} "
                         f"g={g.dtype} Ex={Ex.dtype} Ey={Ey.dtype}; the kernel "
-                        f"takes f64/f64, f32/f32 and bf16 storage/f32 fields")
+                        f"takes (storage, field) dtypes {sorted(map(str, modes))}")
     if (f.dim() != 4 or tuple(f.shape[:2]) != (3, D2Q9.Q)
             or g.shape != f.shape or Ex.shape != f.shape[2:]
             or Ey.shape != Ex.shape):
-        raise ValueError(f"collide_stream: shapes f={tuple(f.shape)} "
+        raise ValueError(f"{name}: shapes f={tuple(f.shape)} "
                          f"g={tuple(g.shape)} Ex={tuple(Ex.shape)} "
                          f"Ey={tuple(Ey.shape)}; want (3, 9, NY, NX) and (NY, NX)")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("collide_stream: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
     return mode
+
+
+def launch_collide(entry: str, modes: dict, f, g, Ex, Ey, phys: dict
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch csrc/fused_step.cu's `entry` into fresh
+    (f, g, rho_q) buffers; raises if the build or the launch fails."""
+    mode = _check_inputs(entry, modes, f, g, Ex, Ey)
+    lib = build.load()
+    if lib.lbm_host_params_size() != ctypes.sizeof(HostParams):
+        raise RuntimeError("HostParams layout differs between "
+                           "csrc/fused_step.cu and its ctypes mirror")
+    hp = host_params(**phys)
+    NY, NX = Ex.shape
+    f_new = torch.empty_like(f)
+    g_new = torch.empty_like(g)
+    rho_q = torch.empty_like(Ex)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    with torch.cuda.device(f.device):
+        err = getattr(lib, entry)(
+            mode, int(phys["neutral_ref"] != 0.0), f.data_ptr(), g.data_ptr(),
+            Ex.data_ptr(), Ey.data_ptr(), f_new.data_ptr(), g_new.data_ptr(),
+            rho_q.data_ptr(), NY, NX, ctypes.addressof(hp), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
+    return f_new, g_new, rho_q
 
 
 def collide_stream(
@@ -162,24 +193,6 @@ def collide_stream(
                 cs2=cs2, kb=kb, neutral_ref=neutral_ref)
     if f.device.type == "cpu":
         return collide_stream_reference(f, g, Ex, Ey, **phys)
-    mode = _check_inputs(f, g, Ex, Ey)
-    lib = build.load()
-    if lib.lbm_host_params_size() != ctypes.sizeof(HostParams):
-        raise RuntimeError("HostParams layout differs between "
-                           "csrc/fused_step.cu and its ctypes mirror")
-    hp = host_params(**phys)
-    NY, NX = Ex.shape
-    f_new = torch.empty_like(f)
-    g_new = torch.empty_like(g)
-    rho_q = torch.empty_like(Ex)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    with torch.cuda.device(f.device):
-        err = lib.lbm_collide_stream(
-            mode, int(neutral_ref != 0.0), f.data_ptr(), g.data_ptr(),
-            Ex.data_ptr(), Ey.data_ptr(), f_new.data_ptr(), g_new.data_ptr(),
-            rho_q.data_ptr(), NY, NX, ctypes.addressof(hp), stream)
-    if err != 0:
-        raise RuntimeError(f"collide_stream kernel launch failed: "
-                           f"cudaError_t {err}")
+    out = launch_collide("lbm_collide_stream", _MODES, f, g, Ex, Ey, phys)
     LAUNCHES += 1
-    return f_new, g_new, rho_q
+    return out

@@ -2,27 +2,29 @@
 (counterpart of lbm_tpu/models/plasma.py).
 
 The step replicates the reference's time loop (src/plasma.cpp:476-523):
-macros -> equilibria -> collide -> stream -> Poisson solve -> E. The port
-runs the periodic FFT configuration, the golden run's; check_supported
-refuses the rest with the ROADMAP item that brings it.
+macros -> equilibria -> collide -> stream (periodic or bounce-back) ->
+Poisson solve (NONE, GS, SOR, FFT or NPS) -> E. check_supported refuses
+what the port does not run yet, with the ROADMAP item that brings it.
 
 State layout: populations f, g as (3, 9, NY, NX) tensors (species-major,
 direction next, lattice minor), the JAX package's layout.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import BC, PlasmaConfig, PoissonSolver
 from ..constants import D2Q9
-from ..kernels.fused_step import collide_stream
+from ..kernels import poisson_iter
+from ..kernels.collide_pallas import fused_collide
+from ..kernels.fused_step import collide_reference, collide_stream
 from ..ops import poisson as poisson_ops
-from ..ops.collide import collide
+from ..ops import stream as stream_ops
 from ..ops.macros import Macros, update_macro
-from ..ops.stream import stream_periodic
+from ..ops.stream import stream_bounceback, stream_periodic
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -34,7 +36,7 @@ class PlasmaState(NamedTuple):
     g: torch.Tensor    # (3, Q, NY, NX) thermal (DDF) populations
     Ex: torch.Tensor   # (NY, NX)
     Ey: torch.Tensor   # (NY, NX)
-    phi: torch.Tensor  # (NY, NX) potential of the last solve
+    phi: torch.Tensor  # (NY, NX) potential, warm-started across steps
     step: int
 
 
@@ -44,18 +46,12 @@ def check_supported(cfg: PlasmaConfig) -> None:
     gaps = []
     if cfg.NZ:
         gaps.append("NZ>0 (3-D column: ROADMAP Queue 1 item 12)")
-    if cfg.bc != BC.PERIODIC:
-        gaps.append("bounce-back BCs (ROADMAP Queue 1 item 8)")
-    if cfg.poisson != PoissonSolver.FFT:
-        gaps.append(f"the {cfg.poisson.name} solver (ROADMAP Queue 1 item 8)")
     if cfg.multistep:
         gaps.append("multistep>0 (temporal blocking: ROADMAP Queue 1 item 11)")
     if cfg.fft_engine == "pallas":
         gaps.append("fft_engine='pallas' (ROADMAP Queue 2 item 11)")
     if cfg.compat.debug_variant:
         gaps.append("debug_variant (ROADMAP Queue 1 item 9)")
-    if cfg.backend == "pallas":
-        gaps.append("backend='pallas' (ROADMAP Queue 2 item 2)")
     if cfg.dtype not in _NUMPY_DTYPES:
         gaps.append(f"dtype {cfg.dtype} (the port computes in float32 or "
                     f"float64)")
@@ -113,42 +109,154 @@ def compute_macros(cfg: PlasmaConfig, state: PlasmaState) -> Macros:
                         neutral_ref=u.rho_n_init if cfg.neutral_delta else 0.0)
 
 
+def _use_iter_kernel(cfg: PlasmaConfig) -> bool:
+    """Resolve cfg.iter_engine: "xla" runs the plain sweeps, "pallas" the
+    solve kernel, and "auto" the kernel on the fused and pallas backends.
+    The JAX package's "auto" also asks for f32 and a grid that fits VMEM
+    (<= 1024^2), limits of Mosaic and the TPU that the H100 does not have:
+    here the kernel takes f32 and f64 at any size. That changes no number,
+    because the kernel is bitwise equal to the sweeps. On CPU tensors the
+    kernel's wrapper runs those same sweeps."""
+    if cfg.iter_engine == "auto":
+        return cfg.backend in ("fused", "pallas")
+    return cfg.iter_engine == "pallas"
+
+
+def _solve_poisson(
+    cfg: PlasmaConfig,
+    rho_q: torch.Tensor,
+    phi: torch.Tensor,
+    Ex: torch.Tensor,
+    Ey: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Poisson dispatch replicating src/poisson.cpp:25-82. Returns
+    (Ex, Ey, phi)."""
+    sol = cfg.poisson
+    compat = cfg.compat
+
+    if sol == PoissonSolver.NONE:
+        if compat.none_solver_kills_external_field:
+            # The reference zeroes E on the first call and never restores
+            # it (src/poisson.cpp:34-43): the post-step field is always 0.
+            return torch.zeros_like(Ex), torch.zeros_like(Ey), phi
+        return Ex, Ey, phi
+
+    periodic_bc = cfg.bc == BC.PERIODIC
+
+    if sol == PoissonSolver.FFT:
+        if not periodic_bc:
+            # FFT under bounce-back: the reference returns without solving
+            # (src/poisson.cpp:76-77); E keeps its previous value.
+            return Ex, Ey, phi
+        phi = poisson_ops.solve_fft(rho_q)
+        Ex2, Ey2 = poisson_ops.efield_periodic(phi)
+        return Ex2, Ey2, phi
+
+    # Iterative solvers. In compat mode the Dirichlet (interior-only)
+    # sweeps run even under periodic BCs, as the reference's dispatcher
+    # does; E still follows the BC type.
+    iter_periodic = periodic_bc and not compat.dirichlet_iterative_under_periodic
+    spec = ("nps" if sol == PoissonSolver.NPS else "gs",
+            cfg.omega_sor if sol == PoissonSolver.SOR else None,
+            cfg.poisson_max_iter, cfg.poisson_tol, not iter_periodic)
+    if _use_iter_kernel(cfg):
+        phi = poisson_iter.solve_iter(phi, rho_q, spec=spec)
+    else:
+        phi = poisson_iter.solve_iter_reference(phi, rho_q, spec=spec)
+    if periodic_bc:
+        Ex2, Ey2 = poisson_ops.efield_periodic(phi)
+    else:
+        Ex2, Ey2 = poisson_ops.efield_neumann(phi)
+    return Ex2, Ey2, phi
+
+
+def _neutral_hole_backgrounds(ref: float):
+    """Per-HOLE_SLOT background f value rho_ref * w_i of the neutral.
+
+    The reference's g-streaming leaks post-collision f values into the 8
+    bounce-back corner holes. In delta mode f[2] holds deltas, so the
+    classic leaked value is delta + rho_ref * w_i; g is not delta-stored,
+    so the background is added back to keep the quirk."""
+    return [ref * float(D2Q9.W[i]) for (i, _, _) in stream_ops.HOLE_SLOTS]
+
+
+def _g_holes_with_background(vals, neutral_ref: float, compute_dtype=None):
+    """Add the neutral background to the 8 g-hole values. `compute_dtype`
+    (bf16-storage mode) does the add at full precision. The fused path's
+    hole bases are already bf16-rounded (the kernel stored them), so those
+    8 cells round twice against the plain path's round-at-final-write: at
+    most one bf16 ulp of the ~1.8e10 background."""
+    if neutral_ref == 0.0:
+        return vals
+    out = []
+    for v, bg in zip(vals, _neutral_hole_backgrounds(neutral_ref)):
+        w = v.to(v.dtype if compute_dtype is None else compute_dtype,
+                 copy=True)
+        w[..., 2] = w[..., 2] + bg
+        out.append(w.to(v.dtype))
+    return out
+
+
 def make_step(cfg: PlasmaConfig) -> Callable[[PlasmaState], PlasmaState]:
-    """The single-step function for this configuration (periodic BCs, FFT
-    solve). backend="fused" runs collide+stream as one kernel call;
-    backend="plain" runs the eager ops, rounding bf16 storage once per
-    step at the final write."""
+    """The single-step function for this configuration.
+
+    backend="fused": collide+stream in one kernel call, then the
+    bounce-back edge fixups; "pallas": the collide-only kernel, then
+    streaming in torch; "plain": the eager ops. The plain and pallas steps
+    round bf16 storage once per step, at the final write (pallas refuses
+    bf16, as the JAX package does)."""
     check_supported(cfg)
     u = cfg.units()
+    periodic = cfg.bc == BC.PERIODIC
     storage_bf16 = cfg.storage == "bf16"
+    if storage_bf16 and cfg.backend == "pallas":
+        raise ValueError("bf16 storage supports the plain and fused backends")
     neutral_ref = u.rho_n_init if cfg.neutral_delta else 0.0
     phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
                 cs2=u.cs2, kb=u.kb, neutral_ref=neutral_ref)
 
-    def solve(rho_q):
-        phi = poisson_ops.solve_fft(rho_q)
-        Ex, Ey = poisson_ops.efield_periodic(phi)
-        return Ex, Ey, phi
-
     def fused_step(state: PlasmaState) -> PlasmaState:
+        if not periodic:
+            # Bounce-back rides the periodic kernel: the reflections are
+            # edge fixups of its result, which holds every post-collision
+            # value at a shifted index (ops/stream.py). The f holes' stale
+            # contents are 8 pre-collision values, read from state.f.
+            f_holes = stream_ops.hole_values(state.f)
         f, g, rho_q = collide_stream(state.f, state.g, state.Ex, state.Ey,
                                      **phys)
-        Ex, Ey, phi = solve(rho_q)
+        if not periodic:
+            g_holes = _g_holes_with_background(
+                stream_ops.hole_values_from_periodic(f), neutral_ref,
+                compute_dtype=cfg.dtype if storage_bf16 else None)
+            f = stream_ops.bounceback_from_periodic(f, f_holes)
+            g = stream_ops.bounceback_from_periodic(g, g_holes)
+        Ex, Ey, phi = _solve_poisson(cfg, rho_q, state.phi, state.Ex,
+                                     state.Ey)
         return PlasmaState(f=f, g=g, Ex=Ex, Ey=Ey, phi=phi,
                            step=state.step + 1)
 
+    # update_macro + collide in cfg.dtype (bf16 storage: the kernel's
+    # partial-fraction thermal algebra), or the collide-only kernel
+    collide_stage = (fused_collide if cfg.backend == "pallas"
+                     else collide_reference)
+
     def plain_step(state: PlasmaState) -> PlasmaState:
-        f_in, g_in = state.f.to(cfg.dtype), state.g.to(cfg.dtype)
-        mac = update_macro(f_in, g_in, state.Ex, state.Ey,
-                           q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
-                           neutral_ref=neutral_ref)
-        f_post, g_post = collide(
-            f_in, g_in, mac, state.Ex, state.Ey, **phys,
-            # bf16 mode: the kernel's partial-fraction thermal algebra
-            g_recip=(lambda x: 1.0 / x) if storage_bf16 else None)
-        f = stream_periodic(f_post)
-        g = stream_periodic(g_post)
-        Ex, Ey, phi = solve(mac.rho_q)
+        f_post, g_post, rho_q = collide_stage(state.f, state.g, state.Ex,
+                                              state.Ey, **phys)
+        if periodic:
+            f = stream_periodic(f_post)
+            g = stream_periodic(g_post)
+        else:
+            # The reference's recycled temp buffers leak stale values into
+            # the corner holes: pre-collision f for the f-streaming,
+            # post-collision f for the g-streaming (ops/stream.py).
+            f = stream_bounceback(f_post, stale=state.f.to(cfg.dtype))
+            g_holes = _g_holes_with_background(
+                stream_ops.hole_values(f_post), neutral_ref)
+            g = stream_ops.bounceback_from_periodic(stream_periodic(g_post),
+                                                    g_holes)
+        Ex, Ey, phi = _solve_poisson(cfg, rho_q, state.phi, state.Ex,
+                                     state.Ey)
         if storage_bf16:
             f = f.to(torch.bfloat16)
             g = g.to(torch.bfloat16)

@@ -28,6 +28,14 @@ _CX = [float(c) for c in D2Q9.CX]
 _CY = [float(c) for c in D2Q9.CY]
 _Q = D2Q9.Q
 
+def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, rounded once. PyTorch's CUDA kernel divides by a Python
+    scalar as a product with its reciprocal, which can move the last bit;
+    a 0-dim divisor on x's device is divided, as JAX and the CUDA kernel
+    divide."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
 # species s collides with itself and with its two partners; pair-velocity
 # axis order is (ei, en, in)
 PAIR_IDX = ((0, 1), (0, 2), (1, 2))
@@ -103,7 +111,7 @@ def collide_species_f_dirs(
         if charged:
             cE = _CX[i] * Ex + _CY[i] * Ey
             cu = _CX[i] * ux_s + _CY[i] * uy_s
-            F = (_W[i] * force_amp) * (cE + cu * cE / cs2 - uE)
+            F = (_W[i] * force_amp) * (cE + _true_div(cu * cE, cs2) - uE)
             f_dirs.append(relax + F)
         else:
             f_dirs.append(relax)
@@ -130,7 +138,8 @@ def collide_species_g_dirs(
         r = 1.0 - inv
         tt.append(((2.0 * r * r - 2.0 * r) * rho_s, 4.0 * r))
     u2 = ux_s * ux_s + uy_s * uy_s
-    dT_amp = -(rho_s * u2) / kb  # per-cell factor of the heating source
+    # per-cell factor of the heating source
+    dT_amp = _true_div(-(rho_s * u2), kb)
 
     g_dirs = []
     for i in range(_Q):
@@ -175,7 +184,7 @@ def collide_species_g_dirs_fast(
         cs[p] = rho_s * (r * r - r) + r      # C_p, per-cell
         offs[p] = 2.0 * r                    # b_p / 2, scalar
     u2 = ux_s * ux_s + uy_s * uy_s
-    dT_amp = -(rho_s * u2) / kb
+    dT_amp = _true_div(-(rho_s * u2), kb)
     # geqd = (T / rho) * Sum_p qf_p / Q; dead cells have T = 0
     ratio_q = (T_s * recip(torch.where(rho_s == 0.0, 1.0, rho_s))) * (1.0 / _Q)
 
@@ -218,7 +227,7 @@ def collide_species_dirs_fused_fast(
         cs9[p] = rho_s * ((r * r - r) * (1.0 / _Q)) + r * (1.0 / _Q)
         offs9[p] = 2.0 * r / _Q
     u2 = ux_s * ux_s + uy_s * uy_s
-    dT_amp = -(rho_s * u2) / kb
+    dT_amp = _true_div(-(rho_s * u2), kb)
     ratio = T_s * recip(torch.where(rho_s == 0.0, 1.0, rho_s))
 
     f_dirs, g_dirs = [], []
@@ -229,7 +238,7 @@ def collide_species_dirs_fused_fast(
         if charged:
             cE = _CX[i] * Ex + _CY[i] * Ey
             cu = _CX[i] * ux_s + _CY[i] * uy_s
-            F = (_W[i] * force_amp) * (cE + cu * cE / cs2 - uE)
+            F = (_W[i] * force_amp) * (cE + _true_div(cu * cE, cs2) - uE)
             f_dirs.append(relax + F)
         else:
             f_dirs.append(relax)

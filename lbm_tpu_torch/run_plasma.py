@@ -1,16 +1,21 @@
-"""Plasma CLI of the port: the main-path subset of scripts/run_plasma.py.
+"""Plasma CLI of the port: the 2-D subset of scripts/run_plasma.py.
 
-Runs the three-population plasma (periodic BCs, FFT Poisson) with the
-19-quantity probe series and the reference-schema timing CSV.
+Runs the three-population plasma under any Poisson solver and either wall
+type, with the 19-quantity probe series and the reference-schema timing
+CSV.
 
     python scripts/run_plasma_torch.py                    # golden 200x200/200
     python scripts/run_plasma_torch.py --preset 1024 --storage bf16
+    python scripts/run_plasma_torch.py --poisson SOR --bc bounceback
+    python scripts/run_plasma_torch.py --preset 1024 --poisson GS --backend pallas
     python scripts/run_plasma_torch.py --device cpu --nx 64 --ny 64 --steps 6
 
-Defaults: --backend fused (the CUDA collide+stream kernel) on --device
-cuda. There is no silent CPU fallback: without a GPU, --device cuda raises;
-only an explicit --device cpu runs on the CPU, with the plain backend.
-main(argv) returns a summary dict (the probe series included).
+Defaults: --backend fused (the CUDA collide+stream kernel; GS/SOR/NPS
+solve in the CUDA solve kernel) on --device cuda. --backend pallas runs
+the collide-only CUDA kernel and streams in torch. There is no silent CPU
+fallback: without a GPU, --device cuda raises; only an explicit --device
+cpu runs on the CPU, with the plain backend. main(argv) returns a summary
+dict (the probe series and each kernel's launch count included).
 """
 from __future__ import annotations
 
@@ -23,8 +28,12 @@ import torch
 
 from . import config as C
 from .io import probes, timing
-from .kernels import fused_step
+from .kernels import collide_pallas, fused_step, poisson_iter
 from .models import plasma
+
+# each kernel wrapper's module, by the name of its TPU counterpart
+KERNELS = {"collide_stream": fused_step, "fused_collide": collide_pallas,
+           "solve_iter": poisson_iter}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -35,7 +44,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--nx", type=int)
     p.add_argument("--ny", type=int)
     p.add_argument("--steps", type=int)
-    p.add_argument("--backend", choices=["plain", "fused"], default="fused")
+    p.add_argument("--poisson", choices=[s.name for s in C.PoissonSolver])
+    p.add_argument("--bc", choices=["periodic", "bounceback"])
+    p.add_argument("--omega-sor", type=float)
+    p.add_argument("--backend", choices=["plain", "pallas", "fused"],
+                   default="fused")
     p.add_argument("--storage", choices=["native", "bf16"], default="native",
                    help="population storage precision; arithmetic stays f32")
     p.add_argument("--neutral-delta", dest="neutral_delta",
@@ -63,6 +76,13 @@ def build_config(args: argparse.Namespace) -> C.PlasmaConfig:
         over["NY"] = args.ny
     if args.steps:
         over["nsteps"] = args.steps
+    if args.poisson:
+        over["poisson"] = C.PoissonSolver[args.poisson]
+    if args.bc:
+        over["bc"] = (C.BC.PERIODIC if args.bc == "periodic"
+                      else C.BC.BOUNCE_BACK)
+    if args.omega_sor:
+        over["omega_sor"] = args.omega_sor
     over["backend"] = args.backend
     over["dtype"] = torch.float64 if args.f64 else torch.float32
     # delta storage is an accuracy win in f32; f64 keeps the classic layout
@@ -84,9 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             raise RuntimeError("--device cuda: no CUDA device is available "
                                "(pass --device cpu to run on the CPU)")
     elif device.type == "cpu":
-        if args.backend == "fused":
-            print("--device cpu: the fused kernel needs a GPU, using the "
-                  "plain backend")
+        if args.backend != "plain":
+            print(f"--device cpu: the {args.backend} backend's kernels need "
+                  f"a GPU, using the plain backend")
             args.backend = "plain"
     else:
         raise SystemExit(f"--device {args.device}: want cuda[:N] or cpu")
@@ -96,7 +116,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     state = plasma.init_state(cfg, device)
     step = plasma.make_step(cfg)
     rec = probes.ProbeRecorder(cfg.NX, cfg.NY, device)
-    launches0 = fused_step.LAUNCHES
+    launches0 = {k: m.LAUNCHES for k, m in KERNELS.items()}
 
     timer = timing.StepTimer(cfg.NX, cfg.NY)
     timer.start()
@@ -123,11 +143,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                  for t in (state.f, state.g, state.Ex, state.Ey))
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
+    launches = {k: m.LAUNCHES - launches0[k] for k, m in KERNELS.items()}
     print(f"Simulation ended: {cfg.NX}x{cfg.NY}, {cfg.nsteps} steps, "
           f"{wall_ms:.0f} ms ({timer.mlups:.2f} MLUPS) on {device_name}, "
-          f"backend {cfg.backend}, storage {cfg.storage}, {cfg.dtype}")
+          f"backend {cfg.backend}, poisson {cfg.poisson.name}, "
+          f"bc {cfg.bc.name}, storage {cfg.storage}, {cfg.dtype}; kernel "
+          f"launches " + ", ".join(f"{k} {n}" for k, n in launches.items()))
     return dict(NX=cfg.NX, NY=cfg.NY, steps=cfg.nsteps, wall_ms=wall_ms,
                 mlups=timer.mlups, device=device_name, backend=cfg.backend,
+                poisson=cfg.poisson.name, bc=cfg.bc.name,
                 storage=cfg.storage, dtype=str(cfg.dtype),
-                launches=fused_step.LAUNCHES - launches0, finite=finite,
-                probes=series)
+                launches=launches, finite=finite, probes=series,
+                state=state)

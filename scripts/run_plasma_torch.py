@@ -2,6 +2,7 @@
 """Plasma CLI of the PyTorch/CUDA port (lbm_tpu_torch.run_plasma).
 
     python scripts/run_plasma_torch.py                 # golden 200x200/200 on cuda
+    python scripts/run_plasma_torch.py --poisson SOR --bc bounceback
     python scripts/run_plasma_torch.py --device cpu --nx 64 --ny 64 --steps 6
 """
 from __future__ import annotations

@@ -112,3 +112,21 @@ def test_host_params_fold_like_the_plain_version():
     assert list(hp.active[2]) == [0.0, 1.0, 1.0]
     assert hp.keep[0] == 1.0 - (1 / 5.0 + 1 / 6.0 + 1 / 4.0)
     assert list(hp.charged) == [1.0, 1.0, 0.0]
+
+
+def test_load_declares_every_exported_function():
+    """build.SIGNATURES lists each extern "C" function of csrc/*.cu with
+    its parameters' ctypes (an undeclared pointer is cut to 32 bits)."""
+    kinds = {"int": ctypes.c_int, "double": ctypes.c_double}
+    exported = {}
+    for src in sorted(Path(build.CSRC).glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            types = []
+            for p in filter(None, (p.strip() for p in params.split(","))):
+                types.append(ctypes.c_void_p if "*" in p
+                             else kinds[p.rsplit(None, 1)[0]])
+            exported[name] = types
+    assert exported.keys() == build.SIGNATURES.keys()
+    for name, types in exported.items():
+        assert build.SIGNATURES[name] == types, name

@@ -8,6 +8,7 @@ seed, so both packages see the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import jax
 import jax.numpy as jnp
@@ -23,14 +24,23 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "float64": (jnp.float64, torch.float64)}
 
 
+def _jax_field(v):
+    """An lbm_tpu_torch.config enum member as lbm_tpu.config's."""
+    if isinstance(v, enum.Enum):
+        return getattr(jcfg, type(v).__name__)[v.name]
+    return v
+
+
 def configs(dtype: str = "float64", backend: str = "plain", **fields):
-    """(lbm_tpu config, lbm_tpu_torch config) with the same fields.
-    backend "plain" maps to the JAX package's "jnp"; "fused" to its
-    interpret-mode Pallas kernel."""
+    """(lbm_tpu config, lbm_tpu_torch config) with the same fields (enums
+    given as lbm_tpu_torch.config's). backend "plain" maps to the JAX
+    package's "jnp"; "fused" and "pallas" to its interpret-mode Pallas
+    kernels."""
     jdt, tdt = DTYPES[dtype]
-    jax_kw = dict(fields, dtype=jdt, backend="jnp")
-    if backend == "fused":
-        jax_kw.update(backend="fused", kernel_interpret=True)
+    jax_kw = {k: _jax_field(v) for k, v in fields.items()}
+    jax_kw.update(dtype=jdt, backend="jnp")
+    if backend in ("fused", "pallas"):
+        jax_kw.update(backend=backend, kernel_interpret=True)
     return (dataclasses.replace(jcfg.PlasmaConfig(), **jax_kw),
             dataclasses.replace(tcfg.PlasmaConfig(), **fields, dtype=tdt,
                                 backend=backend))
@@ -44,6 +54,18 @@ def jax_state_after(cfg_jax, n_steps: int):
     for _ in range(n_steps):
         state = step(state)
     return state
+
+
+def op_by_op(fn):
+    """fn with JAX run op by op (jax.disable_jit), also inside lax.while_loop.
+    XLA's CPU compiler contracts a*b + c into one fused multiply-add within
+    a compiled computation (the iterative solvers' loop body), which moves
+    last bits; the port's ops and its CUDA kernels (built -fmad=false)
+    round every product, as JAX's ops do one at a time."""
+    def run(*args, **kw):
+        with jax.disable_jit():
+            return fn(*args, **kw)
+    return run
 
 
 def as_numpy(state) -> dict:
