@@ -32,10 +32,25 @@ phase fails:
      bounce-back + delta (fused), 256^2 f32 GS (fused), 4096^2 bf16 + delta
      NONE (fused), 2048^2 f32 FFT (pallas); ms/step, MLUPS, each kernel's
      ms and its plain version's, sweeps per solve; the state must stay
-     finite.
+     finite;
+  6a. cavity kernels vs their plain versions: stored, lean and multistep
+     (K = 1, 4, 17 from step 8, across the lid ramp) on a seeded state
+     warmed past the ramp, f64, f32 and bf16 storage, at 37x53 and
+     129x129; bitwise, or for stored and lean within the ladder f64 1e-12
+     relative, f32 4 ulp, bf16 f one bf16 ulp (multistep bitwise only);
+  6b. Ghia: lbm_tpu_torch.run_cavity.main at 129^2, Re = 100, u_lid = 0.1,
+     10,000 steps, stored f32 and f64, lean f32, multistep 100 f32, each
+     within the gate of tests/test_cavity.py (max|du| < 0.035, rms < 0.02,
+     max|dv| < 0.02, rms < 0.01), one launch a step (a window for
+     multistep); f64 mass drift < 1e-12;
+  6c. cavity real sizes: bench.py's legs (1000^2 lean f32 and bf16 stored,
+     512^2 multistep 256, 2048^2 multistep 32) and 2048^2 stored and lean
+     f32; ms/step, MLUPS, each kernel's device ms (chained as the rollout
+     chains it, and repeated on one input) beside its plain version's and
+     its bound; the state must stay finite.
 
 The line before the last is a JSON object {"kernels": [...]}: for each
-kernel its launch count on its CLI run (phase 4 or 4b, counts reset
+kernel its launch count on its CLI run (phase 4, 4b or 6b, counts reset
 before the run), its worst error against its plain version, its time
 beside the plain version's and beside its bound at the main path's
 shapes. The last line is {"ok": true, "device": {...}}. Needs no JAX.
@@ -261,7 +276,8 @@ def _collide_vs_plain(kernel_fn, plain_fn, modes):
 
 def _bits(t):
     import torch
-    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+    return t.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[t.element_size()])
 
 
 def phase_solve_kernel():
@@ -598,6 +614,305 @@ def phase_real_size_solvers():
     return out
 
 
+# cavity kernels: bytes a site that each must move (f read and written,
+# plus rho, ux, uy in stored mode), by (kernel, storage, compute itemsize)
+def _cavity_bytes_per_site(kernel, f_itemsize, c_itemsize):
+    pops = 2 * 9 * f_itemsize
+    return pops + 2 * 3 * c_itemsize if kernel == "stored" else pops
+
+
+CAVITY_FLOP = 170   # a site and step (the JAX kernels' cost estimate)
+
+
+def _cavity_bound_ms(kernel, sites, f_itemsize, c_itemsize, k_steps=1):
+    """(least ms, "bytes" or "operations") of one launch."""
+    t_bytes = (_cavity_bytes_per_site(kernel, f_itemsize, c_itemsize)
+               * sites / HBM_BYTES_PER_S * 1e3)
+    flop_rate = F64_FLOP_PER_S if c_itemsize == 8 else F32_FLOP_PER_S
+    t_ops = CAVITY_FLOP * k_steps * sites / flop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _device_ms(fn, reps):
+    """Device ms per call of back-to-back launches: the card first spins
+    for ~10 ms so that the host has queued the launches before the timed
+    window opens."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _cavity_seeded(cfg, device, seed):
+    """The initial state after 12 plain steps (past the sigma = 10 lid
+    ramp), with a seeded relative perturbation of ~1e-3 of the full
+    populations and of the stored macros (made with numpy in float64)."""
+    import torch
+    from lbm_tpu_torch.models import cavity
+
+    plain = dataclasses.replace(cfg, backend="plain", lean_macros=False,
+                                multistep=0)
+    state = cavity.make_rollout(plain, 12)(cavity.init_state(plain, device))
+    rng = np.random.default_rng(seed)
+
+    def perturb(t, dtype, additive=0.0):
+        a = t.double().cpu().numpy()
+        noise = rng.standard_normal(a.shape)
+        a = a * (1.0 + 1e-3 * noise) + additive * noise
+        return torch.as_tensor(a, device=device).to(dtype).contiguous()
+
+    dt = cfg.dtype
+    f = cavity.encode_f(cfg, perturb(cavity.decode_f(cfg, state.f), dt))
+    return state._replace(f=f.contiguous(), rho=perturb(state.rho, dt),
+                          ux=perturb(state.ux, dt, 1e-4),
+                          uy=perturb(state.uy, dt, 1e-4))
+
+
+# (label, dtype, storage, f rtol, f atol*scale); None: one bf16 ulp
+CAVITY_MODES = [("f64", "float64", "native", 1e-12, 1e-14),
+                ("f32", "float32", "native", 4 * 2.0 ** -23, 4 * 2.0 ** -23),
+                ("bf16", "float32", "bf16", None, None)]
+
+
+def _hold_cavity(what, name, mode, k_out, p_out):
+    """Hold a cavity kernel's outputs (f, then rho, ux, uy where stored)
+    against its plain version's: bitwise, or for the stored and lean
+    kernels within the mode's tolerance ladder; returns (max|err|, notes on
+    the fields that differ)."""
+    import torch
+    rtol, atol = mode[3:]
+    worst, notes = 0.0, []
+    for field, kg, pg in zip(("f", "rho", "ux", "uy"), k_out, p_out):
+        where = f"{what} {field}"
+        require(kg.shape == pg.shape and kg.dtype == pg.dtype,
+                f"{where}: shape/dtype differ")
+        require(bool(torch.isfinite(kg.float()).all()),
+                f"{where}: kernel output not finite")
+        if torch.equal(_bits(kg), _bits(pg)):
+            continue
+        require("multistep" not in name,
+                f"{where}: not bitwise equal to the plain version")
+        if rtol is None and field == "f":
+            mx, ratio, same = _errors(kg, pg, 0, 0, bf16_ulp=True)
+        else:
+            r, a = (rtol, atol) if rtol else CAVITY_MODES[1][3:]
+            mx, ratio, same = _errors(kg, pg, r, a)
+        worst = max(worst, mx)
+        notes.append(f"{field} max|err| {mx:.3e} ({ratio:.3f} of the ladder, "
+                     f"bitwise {100 * same:.2f}%)")
+        require(ratio <= 1.0, f"{where}: error {ratio:.3f} x the tolerance "
+                f"ladder")
+    return worst, notes
+
+
+def phase_cavity_kernels():
+    """Phase 6a: the three cavity kernels against their plain versions on
+    the same seeded states; returns each kernel's worst max|err|."""
+    import torch
+    from lbm_tpu_torch.config import CavityConfig
+    from lbm_tpu_torch.kernels import fused_cavity as fc
+    from lbm_tpu_torch.models import cavity
+
+    print("== phase 6a: cavity kernels vs plain versions on the card")
+    device = torch.device("cuda")
+    worst = dict.fromkeys(fc.LAUNCHES, 0.0)
+    for ny, nx in ((37, 53), (129, 129)):
+        for mode in CAVITY_MODES:
+            label, dtype, storage = mode[:3]
+            cfg = CavityConfig(NX=nx, NY=ny, dtype=getattr(torch, dtype),
+                               storage=storage, backend="fused")
+            st = _cavity_seeded(cfg, device, seed=ny * 1000 + nx)
+            u = cavity._lid_speed(cfg, st.step)
+            macros = (st.rho, st.ux, st.uy)
+            cases = [
+                ("collide_stream_cavity", "stored",
+                 fc.collide_stream_cavity(st.f, *macros, u, tau=cfg.tau),
+                 fc.collide_stream_cavity_reference(st.f, *macros, u,
+                                                    tau=cfg.tau)),
+                ("collide_stream_cavity_lean", "lean",
+                 [fc.collide_stream_cavity_lean(st.f, u, tau=cfg.tau)],
+                 [fc.collide_stream_cavity_lean_reference(st.f, u,
+                                                          tau=cfg.tau)])]
+            for k in (1, 4, 17):
+                kw = dict(tau=cfg.tau, k_steps=k, u_lid=cfg.u_lid,
+                          sigma=cfg.sigma)
+                cases.append(
+                    ("collide_stream_cavity_multistep", f"multistep K={k}",
+                     [fc.collide_stream_cavity_multistep(st.f, 8, **kw)],
+                     [fc.collide_stream_cavity_multistep_reference(st.f, 8,
+                                                                   **kw)]))
+            torch.cuda.synchronize()
+            line = []
+            for name, tag, k_out, p_out in cases:
+                mx, notes = _hold_cavity(f"{label} {ny}x{nx} {tag}", name,
+                                         mode, k_out, p_out)
+                worst[name] = max(worst[name], mx)
+                line += [f"{tag} {note}" for note in notes]
+            print(f"{label:>5} {ny}x{nx}: stored, lean, multistep K=1/4/17 "
+                  f"from step 8: " + ("; ".join(line) if line
+                                      else "all bitwise equal"))
+    return worst
+
+
+GHIA_GATE = {"u_max": 0.035, "u_rms": 0.02, "v_max": 0.02, "v_rms": 0.01}
+
+
+def _reset_cavity_launches():
+    from lbm_tpu_torch.kernels import fused_cavity
+    for k in fused_cavity.LAUNCHES:
+        fused_cavity.LAUNCHES[k] = 0
+
+
+def phase_cavity_ghia():
+    """Phase 6b: the cavity CLI at 129^2, Re = 100, 10,000 steps through
+    each kernel, against Ghia (1982); returns each kernel's launch count
+    from its run (counts set to 0 just before the run, read just after)."""
+    from lbm_tpu_torch import run_cavity
+    from lbm_tpu_torch.kernels import fused_cavity
+
+    print("== phase 6b: Ghia 129^2 Re=100, 10,000 steps, CLI")
+    steps = 10_000
+    runs = [("stored f32", [], "collide_stream_cavity", steps),
+            ("stored f64", ["--f64"], "collide_stream_cavity", steps),
+            ("lean f32", ["--lean"], "collide_stream_cavity_lean", steps),
+            ("multistep 100 f32", ["--multistep", "100"],
+             "collide_stream_cavity_multistep", -(-steps // 100))]
+    launches = {}
+    for label, flags, kernel, want in runs:
+        _reset_cavity_launches()
+        s = run_cavity.main(["--nx", "129", "--steps", str(steps), "--re",
+                             "100", "--u-lid", "0.1", "--backend", "fused",
+                             "--device", "cuda", "--out",
+                             os.path.join(OUT, "cavity_" + label.replace(
+                                 " ", "_"))] + flags)
+        counts = dict(fused_cavity.LAUNCHES)
+        require(counts == {k: want if k == kernel else 0 for k in counts},
+                f"{label}: launches {counts}, want {want} of {kernel}")
+        require(s["launches"] == counts, f"{label}: the CLI counted "
+                f"{s['launches']}")
+        require(s["finite"], f"{label}: state not finite")
+        g = s["ghia"]
+        for key, gate in GHIA_GATE.items():
+            require(g[key] < gate, f"{label}: Ghia {key} {g[key]:.4f} >= "
+                    f"{gate}")
+        if "f64" in label:
+            require(s["mass_drift"] < 1e-12, f"{label}: mass drift "
+                    f"{s['mass_drift']:.3e} >= 1e-12")
+        launches.setdefault(kernel, counts[kernel])
+        print(f"{label:>17}: Ghia u max {g['u_max']:.4f} rms {g['u_rms']:.4f}"
+              f", v max {g['v_max']:.4f} rms {g['v_rms']:.4f}; mass drift "
+              f"{s['mass_drift']:.3e}; {counts[kernel]} launches; "
+              f"{s['wall_ms']:.1f} ms ({s['mlups']:.1f} MLUPS)")
+    return launches
+
+
+# label, n, storage, lean, multistep K, warm-up steps, timed steps; the
+# legs of bench.py's cavity (bench.py:481-486, 495-505) plus 2048^2 stored
+# and lean
+CAVITY_CELLS = [
+    ("1000^2 lean f32", 1000, "native", True, 0, 20, 400),
+    ("1000^2 bf16 stored", 1000, "bf16", False, 0, 20, 400),
+    ("512^2 multistep 256 f32", 512, "native", False, 256, 256, 2048),
+    ("2048^2 multistep 32 f32", 2048, "native", False, 32, 32, 512),
+    ("2048^2 stored f32", 2048, "native", False, 0, 20, 200),
+    ("2048^2 lean f32", 2048, "native", True, 0, 20, 200),
+]
+
+
+def phase_cavity_real_size():
+    """Phase 6c: each cell's rollout timed, then its kernel held against
+    its plain version on the rollout's end state and both timed; returns
+    ({kernel: (ms, plain_ms, bound_ms, bound_by, at)} at 2048^2 f32,
+    {kernel: worst max|err|})."""
+    import torch
+    from lbm_tpu_torch.config import CavityConfig
+    from lbm_tpu_torch.kernels import fused_cavity as fc
+    from lbm_tpu_torch.models import cavity
+
+    print("== phase 6c: cavity at real sizes (CUDA events)")
+    device = torch.device("cuda")
+    out, worst = {}, dict.fromkeys(fc.LAUNCHES, 0.0)
+    for label, n, storage, lean, K, warm, steps in CAVITY_CELLS:
+        cfg = CavityConfig(NX=n, NY=n, dtype=torch.float32, storage=storage,
+                           backend="fused", lean_macros=lean, multistep=K)
+        state = cavity.make_rollout(cfg, warm)(cavity.init_state(cfg, device))
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state = cavity.make_rollout(cfg, steps)(state)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms = t0.elapsed_time(t1) / steps
+        require(all(bool(torch.isfinite(t.float()).all())
+                    for t in (state.f, state.rho, state.ux, state.uy)),
+                f"{label}: state not finite after {warm + steps} steps")
+        f, tau = state.f, cfg.tau
+        u = cavity._lid_speed(cfg, state.step)
+        if K:
+            kernel, kind, reps, plain_reps = (
+                "collide_stream_cavity_multistep", "lean", 5, 1)
+            args = (f, state.step)
+            kw = dict(tau=tau, k_steps=K, u_lid=cfg.u_lid, sigma=cfg.sigma)
+        elif lean:
+            kernel, kind, reps, plain_reps = (
+                "collide_stream_cavity_lean", "lean", 50, 3)
+            args, kw = (f, u), dict(tau=tau)
+        else:
+            kernel, kind, reps, plain_reps = (
+                "collide_stream_cavity", "stored", 50, 3)
+            args, kw = (f, state.rho, state.ux, state.uy, u), dict(tau=tau)
+        run = getattr(fc, kernel)
+        plain = getattr(fc, kernel + "_reference")
+        k_out, p_out = run(*args, **kw), plain(*args, **kw)
+        if kind == "lean":
+            k_out, p_out = [k_out], [p_out]
+        torch.cuda.synchronize()
+        mode = CAVITY_MODES[2 if storage == "bf16" else 1]
+        mx, notes = _hold_cavity(label, kernel, mode, k_out, p_out)
+        worst[kernel] = max(worst[kernel], mx)
+        del k_out, p_out
+        # the launches chained as the rollout chains them, each on the
+        # previous one's output
+        box = [args]
+
+        def chained():
+            a = box[0]
+            if K:
+                box[0] = (run(*a, **kw), a[1] + K)
+            elif lean:
+                box[0] = (run(*a, **kw), a[1])
+            else:
+                box[0] = (*run(*a, **kw), a[4])
+
+        ms = _device_ms(chained, reps)
+        plain_ms = _time_ms(lambda: plain(*args, **kw), plain_reps)
+        bound, bound_by = _cavity_bound_ms(kind, n * n, f.element_size(), 4,
+                                           max(K, 1))
+        per = f" ({ms / K:.4f} ms a step)" if K else ""
+        print(f"{label}: {step_ms:.4f} ms/step, "
+              f"{n * n / (step_ms * 1e-3) / 1e6:.1f} MLUPS (window {warm}+"
+              f"{steps} steps); {kernel} vs plain on the end state: "
+              + ("; ".join(notes) if notes else "bitwise equal")
+              + f"; {ms:.4f} ms a launch chained{per}; bound {bound:.4f} ms "
+              f"by {bound_by} ({100 * bound / ms:.1f}% of chained); plain "
+              f"{plain_ms:.4f} ms")
+        if n == 2048:
+            out[kernel] = (ms, plain_ms, bound, bound_by,
+                           "2048x2048 f32 chained" + (f" K={K}" if K else ""))
+        del state, f, args, box
+        torch.cuda.empty_cache()
+    return out, worst
+
+
 def main() -> int:
     import torch
     phase_environment()
@@ -609,6 +924,12 @@ def main() -> int:
     launches.update(phase_sor_bounceback())
     timings = phase_real_size()
     others = phase_real_size_solvers()
+    cavity_err = phase_cavity_kernels()
+    launches.update(phase_cavity_ghia())
+    cavity_times, cavity_err_6c = phase_cavity_real_size()
+    others.update(cavity_times)
+    for name, err in cavity_err_6c.items():
+        cavity_err[name] = max(cavity_err[name], err)
     n = 2048
     kernels = [{
         "name": "collide_stream", "route": "cuda",
@@ -625,7 +946,19 @@ def main() -> int:
              "phase 3b, every case"),
             ("fused_collide", "fused_step.cu",
              "lbm_tpu/kernels/collide_pallas.py:78", collide_err,
-             "200x200 f64")):
+             "200x200 f64"),
+            ("collide_stream_cavity", "fused_cavity.cu",
+             "lbm_tpu/kernels/fused_cavity.py:1008",
+             cavity_err["collide_stream_cavity"],
+             "phases 6a and 6c, every case"),
+            ("collide_stream_cavity_lean", "fused_cavity.cu",
+             "lbm_tpu/kernels/fused_cavity.py:251",
+             cavity_err["collide_stream_cavity_lean"],
+             "phases 6a and 6c, every case"),
+            ("collide_stream_cavity_multistep", "fused_cavity.cu",
+             "lbm_tpu/kernels/fused_cavity.py:759",
+             cavity_err["collide_stream_cavity_multistep"],
+             "phases 6a and 6c, every case")):
         ms, plain_ms, bound, bound_by, at = others[name]
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,

@@ -11,6 +11,9 @@ interpret mode.
 Configurations that the port does not run yet are still constructible;
 models/plasma.check_supported refuses them with NotImplementedError naming
 the ROADMAP item that brings them.
+
+CavityConfig mirrors the JAX package's cavity configuration the same way:
+"plain" for "jnp", and "fused" for the CUDA cavity kernels.
 """
 from __future__ import annotations
 
@@ -150,9 +153,93 @@ class PlasmaConfig:
                 self.tau_ei, self.tau_en, self.tau_in)
 
 
+@dataclasses.dataclass(frozen=True)
+class CavityConfig:
+    """Single-population lid-driven cavity (reference: old codes/LBM_classic).
+
+    Defaults are the Ghia-validated configuration
+    (old codes/LBM_classic/main.cpp:7-11): Re=100, 129^2, u_lid=0.1, 10k
+    steps. The fields and rules are lbm_tpu.config.CavityConfig's, with a
+    torch dtype and the backends "plain" (eager torch, the JAX package's
+    "jnp") and "fused" (the hand-written CUDA cavity kernels; on CPU
+    tensors their plain versions run). The CUDA kernels take any NY: the
+    JAX package's banded kernels need NY % 8 == 0, these do not.
+    """
+
+    NX: int = 129
+    NY: int = 129
+    nsteps: int = 10_000
+    u_lid: float = 0.1
+    Re: float = 100.0
+    # Lid ramp duration: u_lid_dyn = u_lid * t / sigma for t < sigma
+    # (old codes/LBM_classic/LBM.hpp:30, LBM.cpp:180).
+    sigma: float = 10.0
+    dtype: torch.dtype = torch.float32
+
+    backend: str = "plain"
+    # fused only: the kernel recomputes the macros from f and moves the
+    # populations only (72 B/site in f32, 36 in bf16); the stored macros
+    # are always macros_guarded(f) anyway
+    lean_macros: bool = False
+    # fused only: K steps per kernel launch (lean semantics; bf16 storage
+    # rounds once per window). 0 disables.
+    multistep: int = 0
+    # "native" keeps f in dtype; "bf16" stores f as bfloat16 deviations
+    # from the uniform background w_i, with f32 arithmetic and f32 macros
+    storage: str = "native"
+
+    # Stability-guard mode replicating old codes/LBM_classic/Stability:
+    # if tau falls outside [0.5, 2.0], resize NY (and NX to match).
+    stability_autoresize: bool = False
+
+    def __post_init__(self):
+        if self.backend not in ("plain", "fused"):
+            raise ValueError(
+                f"cavity backend must be plain|fused, got {self.backend!r}")
+        if self.storage not in ("native", "bf16"):
+            raise ValueError(
+                f"cavity storage must be native|bf16, got {self.storage!r}")
+        if self.storage == "bf16" and self.dtype != torch.float32:
+            raise ValueError("cavity bf16 storage computes in f32; set "
+                             "dtype=float32 (f64 runs use native storage)")
+        if self.lean_macros and self.backend != "fused":
+            raise ValueError("lean_macros is a fused-kernel mode")
+        if self.multistep:
+            if self.backend != "fused":
+                raise ValueError("multistep is a fused-kernel mode")
+            if self.multistep < 0:
+                raise ValueError(f"multistep must be >= 0, "
+                                 f"got {self.multistep}")
+
+    @property
+    def tau(self) -> float:
+        # tau = 3 nu + 1/2 with nu = u_lid * NY / Re
+        # (old codes/LBM_classic/LBM.cpp:12).
+        return 3.0 * (self.u_lid * self.NY / self.Re) + 0.5
+
+    def with_stability_guard(self) -> "CavityConfig":
+        """A config whose grid is resized so that tau is in [0.5, 2]
+        (old codes/LBM_classic/Stability/LBM_f.cpp:31-53): tau too small
+        -> NY = Re*0.1/(3*u_lid); tau too large -> NY = Re*1.5/(3*u_lid)."""
+        tau = self.tau
+        if 0.5 <= tau <= 2.0:
+            return self
+        if tau < 0.5:
+            ny = int(self.Re * 0.1 / (3.0 * self.u_lid))
+        else:
+            ny = int(self.Re * 1.5 / (3.0 * self.u_lid))
+        ny = max(ny, 2)
+        return dataclasses.replace(self, NX=ny, NY=ny)
+
+
 def preset_golden_plasma() -> PlasmaConfig:
     """Config #1: 200x200, 200 steps, FFT+Periodic (the C++ golden run)."""
     return PlasmaConfig()
+
+
+def preset_cavity_ghia() -> CavityConfig:
+    """Config #2: Ghia-validated lid-driven cavity."""
+    return CavityConfig()
 
 
 def preset_plasma_1024() -> PlasmaConfig:

@@ -116,6 +116,16 @@ SIGNATURES = {
     # out, err_ring, sweeps, NY, NX, stream
     "lbm_solve_iter": [_CI, _CI, _CI, _CD, _CI, _CD, *[_VP] * 6, _CI, _CI,
                        _VP],
+    # mode, f, rho, ux, uy, f_out, rho_out, ux_out, uy_out, u_lid_dyn, tau,
+    # NY, NX, stream
+    "lbm_cavity_collide_stream": [_CI, *[_VP] * 8, _CD, _CD, _CI, _CI, _VP],
+    # mode, f, f_out, u_lid_dyn, tau, NY, NX, stream
+    "lbm_cavity_collide_stream_lean": [_CI, _VP, _VP, _CD, _CD, _CI, _CI,
+                                       _VP],
+    # mode, f, work_a, work_b, f_out, t0, k_steps, u_lid, sigma, tau, NY, NX,
+    # stream
+    "lbm_cavity_multistep": [_CI, *[_VP] * 4, _CI, _CI, _CD, _CD, _CD, _CI,
+                             _CI, _VP],
 }
 
 

@@ -32,8 +32,9 @@ def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c, rounded once. PyTorch's CUDA kernel divides by a Python
     scalar as a product with its reciprocal, which can move the last bit;
     a 0-dim divisor on x's device is divided, as JAX and the CUDA kernel
-    divide."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    divide. torch.full fills the divisor on the device, where torch.tensor
+    would copy it from the host and wait for the stream."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 # species s collides with itself and with its two partners; pair-velocity

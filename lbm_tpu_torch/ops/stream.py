@@ -1,6 +1,6 @@
-"""Push streaming with periodic wrap or bounce-back walls (counterpart of
-lbm_tpu/ops/stream.py: stream_periodic, the bounce-back fixups and their
-flat-gather test oracle).
+"""Push streaming with periodic wrap or bounce-back walls, and the cavity's
+pull streaming (counterpart of lbm_tpu/ops/stream.py: stream_periodic, the
+bounce-back fixups and their flat-gather test oracle, stream_cavity).
 
 Bounce-back is applied as the periodic push plus edge-row and edge-column
 fixups (src/streaming.cpp:70-105). Unlike the JAX functions, which return
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..constants import D2Q9
+from .cavity import lid_deltas, sum_dirs
 
 CX = D2Q9.CX
 CY = D2Q9.CY
@@ -187,3 +188,48 @@ def stream_bounceback(f: torch.Tensor, stale: torch.Tensor | None = None
     (reference: include/streaming.hpp:55)."""
     holes = hole_values(f if stale is None else stale)
     return bounceback_from_periodic(stream_periodic(f), holes)
+
+
+# ---------------------------------------------------------------------------
+# Cavity: pull streaming + 3 bounce-back walls + moving lid (top row)
+# ---------------------------------------------------------------------------
+
+def stream_cavity(f: torch.Tensor, u_lid_dyn: float) -> torch.Tensor:
+    """Pull streaming with the lid-driven-cavity boundary handling
+    (old codes/LBM_classic/LBM.cpp:105-159):
+      * interior: f_new[i, y, x] = f[i, y-cy, x-cx] (a roll by +c);
+      * left/right walls: reflect (1<-3, 8<-6, 5<-7) / (3<-1, 7<-5, 6<-8);
+      * bottom wall: (2<-4, 5<-7, 6<-8);
+      * moving lid: f_new[4] = f[2]; f_new[7] = f[5] + d5;
+        f_new[8] = f[6] + d6, with d_k = -6 w_k rho_top (cx_k u_lid_dyn)
+        and rho_top the 0..8 sum of the pre-streaming top row;
+      * the walls are written sides -> bottom -> lid (the reference's loop
+        order), so the lid wins the two top corners.
+
+    f: (Q, NY, NX) post-collision populations, y = 0 the bottom wall and
+    y = NY-1 the lid. Every wall source is read from f, which is never
+    written: the rolls build a fresh tensor, and only that one is updated
+    in place.
+    """
+    fn = torch.stack([torch.roll(f[i], shifts=(int(CY[i]), int(CX[i])),
+                                 dims=(0, 1)) for i in range(Q)])
+    # left wall x=0: incoming +x directions reflect from their opposites
+    fn[1, :, 0] = f[3, :, 0]
+    fn[8, :, 0] = f[6, :, 0]
+    fn[5, :, 0] = f[7, :, 0]
+    # right wall x=NX-1
+    fn[3, :, -1] = f[1, :, -1]
+    fn[7, :, -1] = f[5, :, -1]
+    fn[6, :, -1] = f[8, :, -1]
+    # bottom wall y=0
+    fn[2, 0, :] = f[4, 0, :]
+    fn[5, 0, :] = f[7, 0, :]
+    fn[6, 0, :] = f[8, 0, :]
+
+    # top moving lid y=NY-1 (written last: wins the two top corners)
+    rho_top = sum_dirs([f[i, -1, :] for i in range(Q)])
+    d5, d6 = lid_deltas(rho_top, u_lid_dyn)
+    fn[4, -1, :] = f[2, -1, :]          # d2 = 0 since cx[2] = 0
+    fn[7, -1, :] = f[5, -1, :] + d5
+    fn[8, -1, :] = f[6, -1, :] + d6
+    return fn

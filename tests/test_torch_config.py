@@ -100,3 +100,64 @@ def test_configs_refused_before_the_solvers_and_walls_now_run(fields):
     assert state.step == 1
     assert all(bool(torch.isfinite(t).all())
                for t in (state.f, state.g, state.Ex, state.Ey, state.phi))
+
+
+# ---------------------------------------------------------------------------
+# CavityConfig
+# ---------------------------------------------------------------------------
+
+def test_cavity_preset_fields_match():
+    j, t = jcfg.preset_cavity_ghia(), tcfg.preset_cavity_ghia()
+    jf = {f.name for f in dataclasses.fields(j)}
+    tf = {f.name for f in dataclasses.fields(t)}
+    assert jf - tf == {"kernel_interpret"}   # no interpret mode in CUDA
+    assert tf <= jf
+    for name in sorted(tf - _MAPPED):
+        assert getattr(t, name) == getattr(j, name), name
+    assert t.dtype == torch.float32 and jnp.dtype(j.dtype).name == "float32"
+    assert (j.backend, t.backend) == ("jnp", "plain")
+    assert (t.NX, t.NY, t.nsteps, t.Re, t.u_lid) == (129, 129, 10_000, 100.0,
+                                                     0.1)
+    assert t.tau == j.tau
+
+
+@pytest.mark.parametrize("fields", [
+    {},
+    {"NX": 64, "NY": 48, "Re": 400.0, "u_lid": 0.05},
+    {"NX": 1000, "NY": 1000, "u_lid": 0.3},      # tau > 2: resized
+    {"NX": 10, "NY": 10, "u_lid": 0.01},         # tau = 0.503: kept
+    {"NX": 200, "NY": 200, "u_lid": 0.001, "Re": 1000.0},  # tau = 0.5006
+])
+def test_cavity_tau_and_stability_guard_match(fields):
+    j = dataclasses.replace(jcfg.CavityConfig(), **fields)
+    t = dataclasses.replace(tcfg.CavityConfig(), **fields)
+    assert t.tau == j.tau
+    jg, tg = j.with_stability_guard(), t.with_stability_guard()
+    assert (tg.NX, tg.NY, tg.tau) == (jg.NX, jg.NY, jg.tau)
+    assert (tg is t) == (jg is j)
+
+
+@pytest.mark.parametrize("bad", [
+    {"storage": "fp8"},
+    {"storage": "bf16", "dtype": "float64"},
+    {"lean_macros": True},               # lean needs the fused backend
+    {"multistep": 8},                    # so does multistep
+    {"multistep": -1, "backend": "fused"},
+    {"backend": "cuda"},
+])
+def test_cavity_validation_matches(bad):
+    j_kw, t_kw = dict(bad), dict(bad)
+    if "dtype" in bad:
+        j_kw["dtype"], t_kw["dtype"] = jnp.float64, torch.float64
+    with pytest.raises(ValueError):
+        jcfg.CavityConfig(**j_kw)
+    with pytest.raises(ValueError):
+        tcfg.CavityConfig(**t_kw)
+
+
+def test_cavity_backend_names():
+    with pytest.raises(ValueError):
+        tcfg.CavityConfig(backend="jnp")
+    cfg = tcfg.CavityConfig(backend="fused", lean_macros=True, multistep=4,
+                            storage="bf16")
+    assert (cfg.backend, cfg.lean_macros, cfg.multistep) == ("fused", True, 4)

@@ -19,6 +19,10 @@ _SCRIPT = textwrap.dedent("""
     out = main(["--device", "cpu", "--nx", "16", "--ny", "12", "--steps",
                 "2", "--out", sys.argv[1]])
     assert out["finite"] and out["steps"] == 2, out
+    from lbm_tpu_torch.run_cavity import main as cavity_main
+    out = cavity_main(["--device", "cpu", "--nx", "16", "--steps", "3",
+                       "--out", sys.argv[1] + "/cavity"])
+    assert out["finite"] and out["state"].step == 3, out
     assert not any(n == "lbm_tpu" or n.startswith(("lbm_tpu.", "jax."))
                    for n in sys.modules), "JAX or lbm_tpu was imported"
     print("NO_JAX_OK")
