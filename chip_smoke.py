@@ -48,12 +48,33 @@ phase fails:
      f32; ms/step, MLUPS, each kernel's device ms (chained as the rollout
      chains it, and repeated on one input) beside its plain version's and
      its bound; the state must stay finite.
+  7a. the K-step window kernel vs its plain version on a seeded state, in
+     every mode (NONE periodic with and without the quirk, NONE and FFT
+     under bounce-back, FFT + periodic, GS periodic with and without the
+     Dirichlet-sweep quirk, SOR + bounce-back, NPS periodic; 60 sweeps),
+     f64, f32 and bf16 + delta, K = 1, 4, 17, at 37x53 and 200x200;
+     bitwise or the phase-3 ladder, the FFT mode within 1e-11 (f64) and
+     1e-4 (f32) of scale (the plain version sums the DFT in the kernel's
+     order);
+  7b. the golden CLI in f64 with --multistep 8: exactly 25 window
+     launches, the window rows against the C++ fixture (macros at rows
+     t = 0, 8, ..., 192, E at rows t + 7) at rtol 1e-5 / atol 1e-5*scale;
+  7c. real sizes: bench.py's three window legs (200^2 FFT K = 256 f32 and
+     bf16 + delta, 256^2 NONE bf16 + delta K = 256) and 2048^2 / 4096^2
+     NONE bf16 + delta K = 32, periodic and (2048^2) bounce-back, the last
+     three held against the plain version on the rollout's end state;
+     ms/step, MLUPS, device ms a launch, the plain version's ms, the bound.
+Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
+64x4096 f64), where the JAX package needs its split kernel pair.
+
+    python3 chip_smoke.py --only 3,7    # phases 1-2 and the listed ones
 
 The line before the last is a JSON object {"kernels": [...]}: for each
-kernel its launch count on its CLI run (phase 4, 4b or 6b, counts reset
-before the run), its worst error against its plain version, its time
+kernel its launch count on its CLI run (phase 4, 4b, 6b or 7b, counts
+reset before the run), its worst error against its plain version, its time
 beside the plain version's and beside its bound at the main path's
-shapes. The last line is {"ok": true, "device": {...}}. Needs no JAX.
+shapes. The last line is {"ok": true, "device": {...}}; with --only, no
+kernels line and no ok line are printed. Needs no JAX.
 """
 from __future__ import annotations
 
@@ -222,20 +243,30 @@ def phase_kernel_vs_plain():
     from lbm_tpu_torch.kernels import fused_step
 
     print("== phase 3: kernel vs plain version on the card")
-    return _collide_vs_plain(fused_step.collide_stream,
-                             fused_step.collide_stream_reference,
-                             COLLIDE_MODES)
+    golden_err = _collide_vs_plain(fused_step.collide_stream,
+                                   fused_step.collide_stream_reference,
+                                   COLLIDE_MODES)
+    # the widths where the JAX package routes to its split kernel pair
+    # (fused_split.py: f64 from NX = 4096, f32 from NX = 8192)
+    print("   fused_split shapes:")
+    for shape, dtype in (((64, 8192), "float32"), ((64, 4096), "float64")):
+        _collide_vs_plain(fused_step.collide_stream,
+                          fused_step.collide_stream_reference,
+                          [m for m in COLLIDE_MODES
+                           if m[1] == dtype and m[2] == "native"], [shape])
+    return golden_err
 
 
-def _collide_vs_plain(kernel_fn, plain_fn, modes):
-    """Both versions on the same seeded state at 37x53 and 200x200 in each
-    mode; returns the worst max|err| at 200x200 f64."""
+def _collide_vs_plain(kernel_fn, plain_fn, modes,
+                      shapes=((37, 53), (200, 200))):
+    """Both versions on the same seeded state at each shape in each mode;
+    returns the worst max|err| at 200x200 f64."""
     import torch
     from lbm_tpu_torch.config import PlasmaConfig
 
     device = torch.device("cuda")
     golden_err = None
-    for ny, nx in ((37, 53), (200, 200)):
+    for ny, nx in shapes:
         for label, dtype, storage, delta, rtol, atol in modes:
             cfg = PlasmaConfig(NX=nx, NY=ny, dtype=getattr(torch, dtype),
                                storage=storage, neutral_delta=delta,
@@ -418,10 +449,11 @@ def phase_sor_bounceback():
                            else int(poisson_iter.LAST_SWEEPS))
     want_launches = {
         "fused": {"collide_stream": steps, "fused_collide": 0,
-                  "solve_iter": steps},
+                  "solve_iter": steps, "collide_stream_multistep": 0},
         "pallas": {"collide_stream": 0, "fused_collide": steps,
-                   "solve_iter": steps},
-        "plain": {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0}}
+                   "solve_iter": steps, "collide_stream_multistep": 0},
+        "plain": {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
+                  "collide_stream_multistep": 0}}
     for backend, summary in runs.items():
         require(summary["launches"] == want_launches[backend],
                 f"{backend}: launches {summary['launches']}, want "
@@ -913,23 +945,331 @@ def phase_cavity_real_size():
     return out, worst
 
 
-def main() -> int:
+# the window kernel's modes: (label, PlasmaConfig fields)
+def _multistep_modes():
+    from lbm_tpu_torch.config import BC, CompatFlags, PoissonSolver as P
+    bb = BC.BOUNCE_BACK
+    return [
+        ("NONE periodic", dict(poisson=P.NONE)),
+        ("NONE periodic, quirk off", dict(poisson=P.NONE, compat=CompatFlags(
+            none_solver_kills_external_field=False))),
+        ("NONE bounce-back", dict(poisson=P.NONE, bc=bb)),
+        ("FFT bounce-back", dict(poisson=P.FFT, bc=bb)),
+        ("FFT periodic", dict(poisson=P.FFT)),
+        ("GS periodic", dict(poisson=P.GS)),
+        ("GS periodic, quirk off", dict(poisson=P.GS, compat=CompatFlags(
+            dirichlet_iterative_under_periodic=False))),
+        ("SOR bounce-back", dict(poisson=P.SOR, bc=bb)),
+        ("NPS periodic", dict(poisson=P.NPS)),
+    ]
+
+
+# (label, dtype, storage, neutral_delta, rtol, atol*scale, FFT-mode tol)
+MULTISTEP_DTYPES = [
+    ("f64", "float64", "native", False, 1e-12, 1e-14, 1e-11),
+    ("f32", "float32", "native", False, 1e-5, 1e-6, 1e-4),
+    ("bf16+delta", "float32", "bf16", True, None, None, 1e-4),
+]
+WINDOW_FIELDS = ("f", "g", "Ex", "Ey", "phi")
+
+
+def _hold_window(where, dmode, fft, k_out, p_out):
+    """Hold a window's outputs against the plain version's: bitwise, or
+    the phase-3 ladder (bf16 storage: f and g within one bf16 ulp); in the
+    FFT mode within the mode's share of scale (per species for f and g;
+    bf16 f and g: that, or one bf16 ulp). Returns (max|err|, notes on the
+    fields that differ)."""
     import torch
-    phase_environment()
-    phase_build()
-    golden_err = phase_kernel_vs_plain()
-    solve_err = phase_solve_kernel()
-    collide_err = phase_collide_kernel()
-    launches = {"collide_stream": phase_golden()}
-    launches.update(phase_sor_bounceback())
-    timings = phase_real_size()
-    others = phase_real_size_solvers()
-    cavity_err = phase_cavity_kernels()
-    launches.update(phase_cavity_ghia())
-    cavity_times, cavity_err_6c = phase_cavity_real_size()
-    others.update(cavity_times)
-    for name, err in cavity_err_6c.items():
-        cavity_err[name] = max(cavity_err[name], err)
+    _, _, storage, _, rtol, atol, fft_tol = dmode
+    worst, notes = 0.0, []
+    require(len(k_out) == len(p_out), f"{where}: {len(k_out)} outputs vs "
+            f"{len(p_out)}")
+    for name, kg, pg in zip(WINDOW_FIELDS, k_out, p_out):
+        require(kg.shape == pg.shape and kg.dtype == pg.dtype,
+                f"{where} {name}: shape/dtype differ")
+        require(bool(torch.isfinite(kg.float()).all()),
+                f"{where} {name}: kernel output not finite")
+        if torch.equal(_bits(kg), _bits(pg)):
+            continue
+        pops = name in ("f", "g")
+        if fft:
+            mx, ratio, same = _errors(kg, pg, 0.0, fft_tol)
+            tol = f"{fft_tol:g} of scale"
+            if storage == "bf16" and pops and ratio > 1.0:
+                # either within the share of scale or within one ulp
+                ulp = _errors(kg, pg, 0, 0, bf16_ulp=True)[1]
+                ratio, tol = min(ratio, ulp), tol + " or 1 bf16 ulp"
+        elif storage == "bf16" and pops:
+            mx, ratio, same = _errors(kg, pg, 0, 0, bf16_ulp=True)
+            tol = "1 bf16 ulp"
+        else:
+            r, a = (rtol, atol) if rtol is not None else (1e-5, 1e-6)
+            mx, ratio, same = _errors(kg, pg, r, a)
+            tol = f"rtol {r:g} atol {a:g}*scale"
+        worst = max(worst, mx)
+        notes.append(f"{name} {mx:.3e} ({ratio:.3f} of {tol}, "
+                     f"{100 * same:.1f}% bitwise)")
+        require(ratio <= 1.0, f"{where} {name}: error {ratio:.3f} x the "
+                f"tolerance ({tol})")
+    return worst, notes
+
+
+def phase_multistep_kernel():
+    """Phase 7a; returns the worst max|err| over the f64 cases."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_multistep as fm
+    from lbm_tpu_torch.models import plasma
+
+    print("== phase 7a: window kernel vs plain version, K = 1, 4, 17")
+    device = torch.device("cuda")
+    worst_f64 = 0.0
+    for ny, nx in ((37, 53), (200, 200)):
+        for dmode in MULTISTEP_DTYPES:
+            label, dtype, storage, delta = dmode[:4]
+            line = []
+            for mlabel, fields in _multistep_modes():
+                cfg = PlasmaConfig(NX=nx, NY=ny, dtype=getattr(torch, dtype),
+                                   storage=storage, neutral_delta=delta,
+                                   poisson_max_iter=60, **fields)
+                kw = plasma.multistep_kwargs(cfg)
+                st = _seeded_state(cfg, device, seed=ny * 1000 + nx)
+                args = (st.f, st.g, st.Ex, st.Ey, st.phi)
+                notes = []
+                for k in (1, 4, 17):
+                    k_out = fm.collide_stream_multistep(*args, k_steps=k, **kw)
+                    p_out = fm.collide_stream_multistep_reference(
+                        *args, k_steps=k, **kw)
+                    torch.cuda.synchronize()
+                    mx, n = _hold_window(f"{label} {ny}x{nx} {mlabel} K={k}",
+                                         dmode, kw["solve_fft"], k_out, p_out)
+                    if label == "f64":
+                        worst_f64 = max(worst_f64, mx)
+                    notes += [f"K={k} {note}" for note in n]
+                line.append(f"{mlabel}: " + ("; ".join(notes) if notes
+                                             else "bitwise"))
+            print(f"{label:>10} {ny}x{nx}: " + " | ".join(line))
+    return worst_f64
+
+
+PROBE_E = ("Ex", "Ey", "E_mag")
+
+
+def phase_multistep_golden():
+    """Phase 7b; returns the window kernel's launch count."""
+    from lbm_tpu_torch import run_plasma
+
+    print("== phase 7b: golden 200x200x200 f64, --multistep 8, CLI")
+    ref = _parse_probe_fixture(FIXTURE)
+    _reset_launches()
+    summary = run_plasma.main(["--preset", "golden", "--f64", "--multistep",
+                               "8", "--device", "cuda", "--out",
+                               os.path.join(OUT, "golden_multistep")])
+    launches = summary["launches"]
+    want = {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
+            "collide_stream_multistep": 25}
+    require(launches == want, f"launches {launches}, want {want}")
+    require(summary["finite"], "golden multistep state is not finite")
+    worst = 0.0
+    for k, series in ref.items():
+        # a window row holds the macros before it and the E after it
+        rows = series[7::8] if k in PROBE_E else series[0::8]
+        got = summary["probes"][k]
+        require(got.shape == rows.shape,
+                f"probe {k}: shape {got.shape} vs {rows.shape}")
+        scale = np.abs(series).max()
+        err = np.abs(got - rows)
+        allowed = 1e-5 * np.abs(rows) + 1e-5 * scale
+        ratio = float((err / np.where(allowed == 0, 1e-300, allowed)).max())
+        worst = max(worst, float(err.max() / scale) if scale else 0.0)
+        require(ratio <= 1.0, f"probe series {k}: {ratio:.3f} x the "
+                f"rtol 1e-5 / atol 1e-5*scale gate")
+    print(f"25 window rows of 19 probe series match the C++ fixture (macros "
+          f"at t = 0, 8, ..., 192; E at t + 7): worst max|err|/scale "
+          f"{worst:.3e} (gate 1e-5); {launches['collide_stream_multistep']} "
+          f"launches; {summary['wall_ms']:.1f} ms wall with probes "
+          f"({summary['wall_ms'] / 200:.4f} ms/step, {summary['mlups']:.2f} "
+          f"MLUPS)")
+    return launches["collide_stream_multistep"]
+
+
+def _dft_flop(ny, nx):
+    """flop of one in-kernel DFT solve and E, as the kernel's loops count
+    them (a multiply and an add are two): A, B over x (4 NX each of the
+    NY H outputs); the forward and the inverse y passes (8 NY, plus 4 and
+    2); phi over k (4 H + 1 each of NY NX); E (4 a site)."""
+    h = nx // 2 + 1
+    return (ny * h * (4 * nx + 8 * ny + 4 + 8 * ny + 2)
+            + ny * nx * (4 * h + 1 + 4))
+
+
+def _multistep_bound_ms(n, k_steps, storage, fft):
+    """(least ms, "bytes" or "operations") of one window at n x n f32
+    compute: the JAX kernel's 1,500 flop a site and step for the collision
+    plus the DFT solve as the kernel computes it, at the non-tensor f32
+    rate, or f and g read and written once."""
+    flop = (1500 * n * n + (_dft_flop(n, n) if fft else 0)) * k_steps
+    t_ops = flop / F32_FLOP_PER_S * 1e3
+    t_bytes = BYTES_PER_SITE[storage] * n * n / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# label, n, storage, poisson, bc, K, windows (one warm-up), chained
+# launches, hold against the plain version; bench.py's legs
+# (bench.py:456-473) and the sizes where the JAX package needs its banded
+# wrapper (whose bounce-back branch runs the gated kernel)
+def _multistep_cells():
+    from lbm_tpu_torch.config import BC, PoissonSolver as P
+    per, bb = BC.PERIODIC, BC.BOUNCE_BACK
+    return [
+        ("200^2 FFT f32 K=256", 200, "native", P.FFT, per, 256, 3, 3, False),
+        ("200^2 FFT bf16+delta K=256", 200, "bf16", P.FFT, per, 256, 3, 3,
+         False),
+        ("256^2 NONE bf16+delta K=256", 256, "bf16", P.NONE, per, 256, 3, 3,
+         False),
+        ("2048^2 NONE bf16+delta K=32", 2048, "bf16", P.NONE, per, 32, 3, 3,
+         True),
+        ("2048^2 NONE bounce-back bf16+delta K=32", 2048, "bf16", P.NONE, bb,
+         32, 3, 3, True),
+        ("4096^2 NONE bf16+delta K=32", 4096, "bf16", P.NONE, per, 32, 2, 2,
+         True),
+    ]
+
+
+def phase_multistep_real_size():
+    """Phase 7c; returns ((ms, plain_ms, bound_ms, bound_by, at) at 2048^2,
+    the worst max|err| of the holds)."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_multistep as fm
+    from lbm_tpu_torch.models import plasma
+
+    print("== phase 7c: window kernel at real sizes (CUDA events)")
+    device = torch.device("cuda")
+    out, worst = None, 0.0
+    for (label, n, storage, sol, bc, K, windows, reps,
+         hold) in _multistep_cells():
+        cfg = PlasmaConfig(NX=n, NY=n, dtype=torch.float32, storage=storage,
+                           neutral_delta=storage == "bf16", poisson=sol,
+                           bc=bc, backend="fused", multistep=K)
+        roll = plasma.make_rollout(cfg, K)
+        state = roll(plasma.init_state(cfg, device))
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(windows - 1):
+            state = roll(state)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms = t0.elapsed_time(t1) / ((windows - 1) * K)
+        require(all(bool(torch.isfinite(t.float()).all())
+                    for t in (state.f, state.g, state.Ex, state.Ey,
+                              state.phi)),
+                f"{label}: state not finite after {windows * K} steps")
+        kw = plasma.multistep_kwargs(cfg)
+        args = (state.f, state.g, state.Ex, state.Ey, state.phi)
+        notes = []
+        if hold:
+            k_out = fm.collide_stream_multistep(*args, k_steps=K, **kw)
+        # the plain version at the cell's K, or a 16-step window where a
+        # K = 256 one would take ~25 s (its host-driven DFT loops)
+        k_plain = K if hold else min(K, 16)
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        p_out = fm.collide_stream_multistep_reference(*args, k_steps=k_plain,
+                                                      **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tp) * 1e3
+        if hold:
+            dmode = MULTISTEP_DTYPES[2 if storage == "bf16" else 1]
+            mx, notes = _hold_window(label, dmode, kw["solve_fft"], k_out,
+                                     p_out)
+            worst = max(worst, mx)
+            del k_out
+        del p_out
+        # launches chained as the rollout chains them
+        box = [args]
+
+        def chained():
+            f, g, Ex, Ey, phi = box[0]
+            o = fm.collide_stream_multistep(f, g, Ex, Ey, phi, k_steps=K,
+                                            **kw)
+            box[0] = o if len(o) == 5 else (*o, Ex, Ey, phi)
+
+        ms = _device_ms(chained, reps)
+        bound, bound_by = _multistep_bound_ms(n, K, storage, kw["solve_fft"])
+        print(f"{label}: {step_ms:.4f} ms/step, "
+              f"{n * n / (step_ms * 1e-3) / 1e6:.1f} MLUPS (window "
+              f"{K}+{(windows - 1) * K} steps); "
+              + (("vs plain on the end state: " + ("; ".join(notes) if notes
+                                                   else "bitwise equal")
+                  + "; ") if hold else "")
+              + f"{ms:.4f} ms a launch chained ({ms / K:.4f} ms a step); "
+              f"bound {bound:.4f} ms by {bound_by} ({100 * bound / ms:.1f}% "
+              f"of chained); plain {plain_ms:.1f} ms (1 call, K={k_plain}, "
+              f"{plain_ms / k_plain:.2f} ms a step)")
+        if label == "2048^2 NONE bf16+delta K=32":
+            out = (ms, plain_ms, bound, bound_by,
+                   f"2048x2048 bf16+delta NONE K={K}, a launch chained")
+        del state, args, box
+        torch.cuda.empty_cache()
+    return out, worst
+
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
+                                 "on one NVIDIA GPU (see the module doc).")
+    ap.add_argument("--only", default=None, metavar="3,4,5,6,7",
+                    help="run phases 1-2 and these phases only (no kernels "
+                         "line, no ok line)")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
+
+    def run(phase):
+        return only is None or phase in only
+
+    def timed(phase):
+        t0 = time.perf_counter()
+        out = phase()
+        print(f"   [{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    t_start = time.perf_counter()
+    timed(phase_environment)
+    timed(phase_build)
+    launches, others = {}, {}
+    if run("3"):
+        golden_err = timed(phase_kernel_vs_plain)
+        solve_err = timed(phase_solve_kernel)
+        collide_err = timed(phase_collide_kernel)
+    if run("4"):
+        launches["collide_stream"] = timed(phase_golden)
+        launches.update(timed(phase_sor_bounceback))
+    if run("5"):
+        timings = timed(phase_real_size)
+        others = timed(phase_real_size_solvers)
+    if run("6"):
+        cavity_err = timed(phase_cavity_kernels)
+        launches.update(timed(phase_cavity_ghia))
+        cavity_times, cavity_err_6c = timed(phase_cavity_real_size)
+        others.update(cavity_times)
+        for name, err in cavity_err_6c.items():
+            cavity_err[name] = max(cavity_err[name], err)
+    if run("7"):
+        multistep_err = timed(phase_multistep_kernel)
+        launches["collide_stream_multistep"] = timed(phase_multistep_golden)
+        others["collide_stream_multistep"], err_7c = \
+            timed(phase_multistep_real_size)
+        multistep_err = max(multistep_err, err_7c)
+    print(f"phases took {time.perf_counter() - t_start:.1f} s")
+    if only is not None:
+        print(card_line())
+        print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed (--only)")
+        return 0
     n = 2048
     kernels = [{
         "name": "collide_stream", "route": "cuda",
@@ -958,7 +1298,10 @@ def main() -> int:
             ("collide_stream_cavity_multistep", "fused_cavity.cu",
              "lbm_tpu/kernels/fused_cavity.py:759",
              cavity_err["collide_stream_cavity_multistep"],
-             "phases 6a and 6c, every case")):
+             "phases 6a and 6c, every case"),
+            ("collide_stream_multistep", "fused_multistep.cu",
+             "lbm_tpu/kernels/fused_multistep.py:504", multistep_err,
+             "phase 7a f64 every mode, and the 7c holds")):
         ms, plain_ms, bound, bound_by, at = others[name]
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,

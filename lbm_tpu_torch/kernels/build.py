@@ -1,10 +1,10 @@
 """Build the port's CUDA kernels with nvcc into one shared library.
 
-The sources csrc/*.cu export a plain C interface and are compiled by
-hand (no torch headers, so a build takes seconds), one nvcc per source,
-all started together, then linked into
-build/torch_kernels/<hash>/liblbm_kernels.so under the repository root,
-keyed by a hash of the sources and flags, at first use. The library is
+The sources csrc/*.cu (with the headers csrc/*.cuh they share) export a
+plain C interface and are compiled by hand (no torch headers, so a build
+takes seconds), one nvcc per source, all started together, then linked
+into build/torch_kernels/<hash>/liblbm_kernels.so under the repository
+root, keyed by a hash of the sources, headers and flags, at first use. The library is
 loaded with ctypes. A missing nvcc or a failed build raises with the
 compiler's output: there is no fallback.
 
@@ -54,8 +54,9 @@ def _sources():
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -126,6 +127,9 @@ SIGNATURES = {
     # stream
     "lbm_cavity_multistep": [_CI, *[_VP] * 4, _CI, _CI, _CD, _CD, _CD, _CI,
                              _CI, _VP],
+    # mode, delta, solve_kind, window (MultistepHost*), params, stream
+    "lbm_plasma_multistep": [_CI, _CI, _CI, _VP, _VP, _VP],
+    "lbm_multistep_host_size": [],
 }
 
 

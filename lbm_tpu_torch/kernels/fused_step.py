@@ -39,7 +39,7 @@ _D33 = _D3 * 3
 
 
 class HostParams(ctypes.Structure):
-    """Mirror of struct HostParams in csrc/fused_step.cu, field for field."""
+    """Mirror of struct HostParams in csrc/plasma_site.cuh, field for field."""
 
     _fields_ = [
         ("neutral_ref", ctypes.c_double),
@@ -159,7 +159,7 @@ def launch_collide(entry: str, modes: dict, f, g, Ex, Ey, phys: dict
     lib = build.load()
     if lib.lbm_host_params_size() != ctypes.sizeof(HostParams):
         raise RuntimeError("HostParams layout differs between "
-                           "csrc/fused_step.cu and its ctypes mirror")
+                           "csrc/plasma_site.cuh and its ctypes mirror")
     hp = host_params(**phys)
     NY, NX = Ex.shape
     f_new = torch.empty_like(f)

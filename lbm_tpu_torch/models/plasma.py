@@ -3,8 +3,10 @@
 
 The step replicates the reference's time loop (src/plasma.cpp:476-523):
 macros -> equilibria -> collide -> stream (periodic or bounce-back) ->
-Poisson solve (NONE, GS, SOR, FFT or NPS) -> E. check_supported refuses
-what the port does not run yet, with the ROADMAP item that brings it.
+Poisson solve (NONE, GS, SOR, FFT or NPS) -> E. With cfg.multistep = K the
+rollout runs K steps per kernel launch (kernels/fused_multistep.py).
+check_supported refuses what the port does not run yet, with the ROADMAP
+item that brings it.
 
 State layout: populations f, g as (3, 9, NY, NX) tensors (species-major,
 direction next, lattice minor), the JAX package's layout.
@@ -20,6 +22,7 @@ from ..config import BC, PlasmaConfig, PoissonSolver
 from ..constants import D2Q9
 from ..kernels import poisson_iter
 from ..kernels.collide_pallas import fused_collide
+from ..kernels.fused_multistep import collide_stream_multistep
 from ..kernels.fused_step import collide_reference, collide_stream
 from ..ops import poisson as poisson_ops
 from ..ops import stream as stream_ops
@@ -45,9 +48,8 @@ def check_supported(cfg: PlasmaConfig) -> None:
     yet, naming the ROADMAP item that will bring each."""
     gaps = []
     if cfg.NZ:
-        gaps.append("NZ>0 (3-D column: ROADMAP Queue 1 item 12)")
-    if cfg.multistep:
-        gaps.append("multistep>0 (temporal blocking: ROADMAP Queue 1 item 11)")
+        gaps.append("NZ>0 (3-D column, and its multistep: ROADMAP Queue 1 "
+                    "item 12)")
     if cfg.fft_engine == "pallas":
         gaps.append("fft_engine='pallas' (ROADMAP Queue 2 item 11)")
     if cfg.compat.debug_variant:
@@ -152,13 +154,8 @@ def _solve_poisson(
         Ex2, Ey2 = poisson_ops.efield_periodic(phi)
         return Ex2, Ey2, phi
 
-    # Iterative solvers. In compat mode the Dirichlet (interior-only)
-    # sweeps run even under periodic BCs, as the reference's dispatcher
-    # does; E still follows the BC type.
-    iter_periodic = periodic_bc and not compat.dirichlet_iterative_under_periodic
-    spec = ("nps" if sol == PoissonSolver.NPS else "gs",
-            cfg.omega_sor if sol == PoissonSolver.SOR else None,
-            cfg.poisson_max_iter, cfg.poisson_tol, not iter_periodic)
+    # Iterative solvers; E follows the BC type.
+    spec = _iter_spec(cfg, periodic_bc)
     if _use_iter_kernel(cfg):
         phi = poisson_iter.solve_iter(phi, rho_q, spec=spec)
     else:
@@ -266,11 +263,91 @@ def make_step(cfg: PlasmaConfig) -> Callable[[PlasmaState], PlasmaState]:
     return fused_step if cfg.backend == "fused" else plain_step
 
 
+def _iter_spec(cfg: PlasmaConfig, periodic_bc: bool):
+    """The iterative solve's (kind, omega, max_iter, tol, interior_only)
+    as _solve_poisson dispatches it: in compat mode the Dirichlet
+    (interior-only) sweeps run even under periodic BCs."""
+    iter_periodic = (periodic_bc
+                     and not cfg.compat.dirichlet_iterative_under_periodic)
+    return ("nps" if cfg.poisson == PoissonSolver.NPS else "gs",
+            cfg.omega_sor if cfg.poisson == PoissonSolver.SOR else None,
+            cfg.poisson_max_iter, cfg.poisson_tol, not iter_periodic)
+
+
+def multistep_kwargs(cfg: PlasmaConfig) -> dict:
+    """collide_stream_multistep's keyword arguments for this configuration
+    (all but k_steps), as lbm_tpu/models/plasma.py:435-460 builds them:
+    kill_field under the NONE quirk; the in-kernel FFT solve for FFT +
+    periodic (FFT + bounce-back is the reference's no-op solve, a constant
+    E); for GS/SOR/NPS the iterative spec of _solve_poisson with the
+    Neumann E closure under bounce-back."""
+    u = cfg.units()
+    periodic_bc = cfg.bc == BC.PERIODIC
+    solve_iter = None
+    if cfg.poisson in (PoissonSolver.GS, PoissonSolver.SOR, PoissonSolver.NPS):
+        solve_iter = _iter_spec(cfg, periodic_bc) + (not periodic_bc,)
+    return dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
+                cs2=u.cs2, kb=u.kb,
+                neutral_ref=u.rho_n_init if cfg.neutral_delta else 0.0,
+                kill_field=(cfg.poisson == PoissonSolver.NONE and
+                            cfg.compat.none_solver_kills_external_field),
+                bounce=not periodic_bc,
+                solve_fft=cfg.poisson == PoissonSolver.FFT and periodic_bc,
+                solve_iter=solve_iter)
+
+
+def _multistep_rollout(cfg: PlasmaConfig, n_steps: int
+                       ) -> Callable[[PlasmaState], PlasmaState]:
+    """n_steps as windows of cfg.multistep steps, one kernel launch each,
+    plus one remainder window (lbm_tpu/models/plasma.py:429-516 without
+    its banded branch: the CUDA kernel takes any grid).
+
+    Under the NONE quirk the per-step E zeroing happens once per window:
+    the kernel collides step 1 with the state's field and later steps with
+    0, and the state's E is zeroed after the window. FFT + bounce-back is
+    the reference's no-op solve, so every step collides with the state's
+    E. FFT + periodic and the iterative solvers solve in the kernel every
+    step and return the last step's (Ex, Ey, phi)."""
+    kw = multistep_kwargs(cfg)
+    kill = kw["kill_field"]
+    solves = kw["solve_fft"] or kw["solve_iter"] is not None
+    K = min(int(cfg.multistep), max(n_steps, 1))
+    full, rem = divmod(n_steps, K)
+
+    def window(state: PlasmaState, k: int) -> PlasmaState:
+        if solves:
+            f, g, Ex, Ey, phi = collide_stream_multistep(
+                state.f, state.g, state.Ex, state.Ey, state.phi, k_steps=k,
+                **kw)
+            return PlasmaState(f=f, g=g, Ex=Ex, Ey=Ey,
+                               phi=phi.to(state.phi.dtype),
+                               step=state.step + k)
+        f, g = collide_stream_multistep(state.f, state.g, state.Ex,
+                                        state.Ey, k_steps=k, **kw)
+        Ex, Ey = ((torch.zeros_like(state.Ex), torch.zeros_like(state.Ey))
+                  if kill else (state.Ex, state.Ey))
+        return PlasmaState(f=f, g=g, Ex=Ex, Ey=Ey, phi=state.phi,
+                           step=state.step + k)
+
+    def rollout(state: PlasmaState) -> PlasmaState:
+        for _ in range(full):
+            state = window(state, K)
+        if rem:
+            state = window(state, rem)
+        return state
+
+    return rollout
+
+
 def make_rollout(cfg: PlasmaConfig, n: Optional[int] = None
                  ) -> Callable[[PlasmaState], PlasmaState]:
-    """state -> state after n steps (cfg.nsteps by default), one step at a
-    time."""
+    """state -> state after n steps (cfg.nsteps by default): one step at a
+    time, or with cfg.multistep = K windows of K steps per kernel launch
+    (on CPU tensors the kernel's plain version runs)."""
+    check_supported(cfg)
     n_steps = cfg.nsteps if n is None else n
+    if cfg.multistep:
+        return _multistep_rollout(cfg, n_steps)
     step = make_step(cfg)
 
     def rollout(state: PlasmaState) -> PlasmaState:

@@ -8,10 +8,13 @@ CSV.
     python scripts/run_plasma_torch.py --preset 1024 --storage bf16
     python scripts/run_plasma_torch.py --poisson SOR --bc bounceback
     python scripts/run_plasma_torch.py --preset 1024 --poisson GS --backend pallas
+    python scripts/run_plasma_torch.py --multistep 8          # 8 steps a launch
     python scripts/run_plasma_torch.py --device cpu --nx 64 --ny 64 --steps 6
 
 Defaults: --backend fused (the CUDA collide+stream kernel; GS/SOR/NPS
-solve in the CUDA solve kernel) on --device cuda. --backend pallas runs
+solve in the CUDA solve kernel) on --device cuda. --multistep K runs K
+steps per launch of the CUDA window kernel, every solver and wall type in
+the kernel; probes are then sampled once per window. --backend pallas runs
 the collide-only CUDA kernel and streams in torch. There is no silent CPU
 fallback: without a GPU, --device cuda raises; only an explicit --device
 cpu runs on the CPU, with the plain backend. main(argv) returns a summary
@@ -28,12 +31,13 @@ import torch
 
 from . import config as C
 from .io import probes, timing
-from .kernels import collide_pallas, fused_step, poisson_iter
+from .kernels import collide_pallas, fused_multistep, fused_step, poisson_iter
 from .models import plasma
 
 # each kernel wrapper's module, by the name of its TPU counterpart
 KERNELS = {"collide_stream": fused_step, "fused_collide": collide_pallas,
-           "solve_iter": poisson_iter}
+           "solve_iter": poisson_iter,
+           "collide_stream_multistep": fused_multistep}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -57,6 +61,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "uniform background (default: on for f32, off for "
                         "f64)")
     p.add_argument("--f64", action="store_true", help="float64 parity mode")
+    p.add_argument("--multistep", type=int, default=0, metavar="K",
+                   help="temporal blocking: K whole steps per kernel launch "
+                        "(fused backend; every solver/BC combination: "
+                        "FFT+periodic solves in the kernel by DFT, GS/SOR/"
+                        "NPS sweep in the kernel). Probes then sample at "
+                        "WINDOW boundaries (every K steps) instead of every "
+                        "step: use the default per-step marching when the "
+                        "reference's per-step probe series is the point")
     p.add_argument("--out", default=os.path.join("build", "output", "torch"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
@@ -93,7 +105,13 @@ def build_config(args: argparse.Namespace) -> C.PlasmaConfig:
         if args.f64:
             raise SystemExit("--storage bf16 is an f32 fast mode (drop --f64)")
         over["storage"] = args.storage
-    return dataclasses.replace(cfg, **over)
+    if args.multistep:
+        over["multistep"] = args.multistep
+        over["backend"] = "fused"
+    try:
+        return dataclasses.replace(cfg, **over)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -104,7 +122,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             raise RuntimeError("--device cuda: no CUDA device is available "
                                "(pass --device cpu to run on the CPU)")
     elif device.type == "cpu":
-        if args.backend != "plain":
+        # --multistep stays on the fused backend, whose window kernel runs
+        # its plain version on CPU tensors
+        if args.backend != "plain" and not args.multistep:
             print(f"--device cpu: the {args.backend} backend's kernels need "
                   f"a GPU, using the plain backend")
             args.backend = "plain"
@@ -114,19 +134,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     os.makedirs(args.out, exist_ok=True)
     state = plasma.init_state(cfg, device)
-    step = plasma.make_step(cfg)
+    stride = cfg.multistep or 1
+    # one rollout per window length: stride steps, and the remainder
+    rollouts = {k: plasma.make_rollout(cfg, k)
+                for k in {stride, cfg.nsteps % stride} if k}
     rec = probes.ProbeRecorder(cfg.NX, cfg.NY, device)
     launches0 = {k: m.LAUNCHES for k, m in KERNELS.items()}
 
     timer = timing.StepTimer(cfg.NX, cfg.NY)
     timer.start()
-    for _ in range(cfg.nsteps):
+    for t in range(0, cfg.nsteps, stride):
+        k = min(stride, cfg.nsteps - t)
         # Reference alignment: row t holds the macros computed at the TOP
         # of iteration t (the pre-step state) and the post-Poisson E of the
-        # same iteration, which lives on the post-step state.
+        # same iteration, which lives on the post-step state. Under
+        # --multistep a row is a window: the macros before it, E after it.
         mac = plasma.compute_macros(cfg, state)
-        state = step(state)
-        timer.tick()
+        state = rollouts[k](state)
+        timer.tick(k)
         rec.record(mac, state.Ex, state.Ey)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -147,11 +172,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"Simulation ended: {cfg.NX}x{cfg.NY}, {cfg.nsteps} steps, "
           f"{wall_ms:.0f} ms ({timer.mlups:.2f} MLUPS) on {device_name}, "
           f"backend {cfg.backend}, poisson {cfg.poisson.name}, "
-          f"bc {cfg.bc.name}, storage {cfg.storage}, {cfg.dtype}; kernel "
+          f"bc {cfg.bc.name}, storage {cfg.storage}, {cfg.dtype}"
+          + (f", multistep {cfg.multistep}" if cfg.multistep else "")
+          + "; kernel "
           f"launches " + ", ".join(f"{k} {n}" for k, n in launches.items()))
     return dict(NX=cfg.NX, NY=cfg.NY, steps=cfg.nsteps, wall_ms=wall_ms,
                 mlups=timer.mlups, device=device_name, backend=cfg.backend,
                 poisson=cfg.poisson.name, bc=cfg.bc.name,
                 storage=cfg.storage, dtype=str(cfg.dtype),
+                multistep=cfg.multistep,
                 launches=launches, finite=finite, probes=series,
                 state=state)

@@ -206,7 +206,8 @@ def test_cli_runs_sor_bounceback_on_cpu(tmp_path):
     assert summary["finite"] and summary["steps"] == 3
     assert (summary["poisson"], summary["bc"]) == ("SOR", "BOUNCE_BACK")
     assert summary["launches"] == {"collide_stream": 0, "fused_collide": 0,
-                                   "solve_iter": 0}
+                                   "solve_iter": 0,
+                                   "collide_stream_multistep": 0}
     with open(tmp_path / "simulation_time_plasma_details.csv") as fh:
         row = fh.read().splitlines()[1]
     assert row.startswith("32x24,3,1,2,1,")

@@ -72,7 +72,8 @@ def test_backend_names():
 
 
 @pytest.mark.parametrize("fields, item", [
-    ({"multistep": 4, "backend": "fused"}, "Queue 1 item 11"),
+    ({"multistep": 4, "backend": "fused", "NZ": 16,
+      "poisson": tcfg.PoissonSolver.NONE}, "Queue 1 item 12"),
     ({"fft_engine": "pallas"}, "Queue 2 item 11"),
     ({"compat": tcfg.CompatFlags(debug_variant=True)}, "Queue 1 item 9"),
     ({"NZ": 16}, "Queue 1 item 12"),
@@ -92,11 +93,12 @@ def test_unsupported_configs_raise(fields, item):
     {"poisson": tcfg.PoissonSolver.NPS},
     {"poisson": tcfg.PoissonSolver.NONE},
     {"backend": "pallas"},
-], ids=["bounceback", "GS", "SOR", "NPS", "NONE", "pallas"])
+    {"backend": "fused", "multistep": 4},
+], ids=["bounceback", "GS", "SOR", "NPS", "NONE", "pallas", "multistep"])
 def test_configs_refused_before_the_solvers_and_walls_now_run(fields):
     cfg = dataclasses.replace(tcfg.PlasmaConfig(NX=8, NY=8,
                                                 poisson_max_iter=5), **fields)
-    state = tplasma.make_step(cfg)(tplasma.init_state(cfg, "cpu"))
+    state = tplasma.make_rollout(cfg, 1)(tplasma.init_state(cfg, "cpu"))
     assert state.step == 1
     assert all(bool(torch.isfinite(t).all())
                for t in (state.f, state.g, state.Ex, state.Ey, state.phi))

@@ -78,7 +78,7 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 def test_host_params_mirror_matches_the_cuda_struct():
     """The ctypes HostParams lists the fields of the C struct in order,
     with the same array shapes, so the byte layouts agree."""
-    src = (Path(build.CSRC) / "fused_step.cu").read_text()
+    src = (Path(build.CSRC) / "plasma_site.cuh").read_text()
     body = re.search(r"struct HostParams \{(.*?)\};", src, re.S).group(1)
     c_fields = []
     for decl in re.findall(r"double ([^;]+);", body):

@@ -19,6 +19,10 @@ _SCRIPT = textwrap.dedent("""
     out = main(["--device", "cpu", "--nx", "16", "--ny", "12", "--steps",
                 "2", "--out", sys.argv[1]])
     assert out["finite"] and out["steps"] == 2, out
+    out = main(["--device", "cpu", "--nx", "16", "--ny", "12", "--steps",
+                "3", "--multistep", "2", "--out", sys.argv[1] + "/ms"])
+    assert out["finite"] and out["state"].step == 3, out
+    assert out["probes"]["rho_q"].shape == (2, 9), out
     from lbm_tpu_torch.run_cavity import main as cavity_main
     out = cavity_main(["--device", "cpu", "--nx", "16", "--steps", "3",
                        "--out", sys.argv[1] + "/cavity"])
