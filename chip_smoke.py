@@ -64,13 +64,28 @@ phase fails:
      NONE bf16 + delta K = 32, periodic and (2048^2) bounce-back, the last
      three held against the plain version on the rollout's end state;
      ms/step, MLUPS, device ms a launch, the plain version's ms, the bound.
+  8a. the 3-D collide_stream3d kernel vs its plain version on seeded warm
+     states at 12x16x8, 16x16x1 and 17x13x2 (x, y, z), f64 and f32 with
+     and without neutral-delta storage and bf16 + delta, at phase 3's
+     tolerances, with the number of bitwise-equal elements;
+  8b. the 3-D CLI with its defaults (lbm_tpu_torch.run_plasma3d.main: 64^3,
+     50 steps, FFT, fused, f32 + delta): exactly 50 launches, a finite
+     state, the kernel held against its plain version on the end state and
+     timed; then --f64 for 3 steps: neutral mass drift < 1e-12;
+  8c. 3-D real sizes with FFT: 128^3 bf16 + delta and f32 + delta, 256^3,
+     512^2x64 and 1024^2x32 bf16 + delta (bench.py's 3-D legs and their
+     neighbours), 2 warm-up + 6 timed steps: ms/step, MLUPS, the kernel's
+     ms and its byte bound, the solve + E's ms (the plain version's ms at
+     128^3); and the kernel held against its plain version at the cross-
+     sections where the JAX package routes to its split pair and panel
+     kernel: 192^2 f32 + delta and 256^2, 512^2, 1024^2 bf16 + delta, NZ=4.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
     python3 chip_smoke.py --only 3,7    # phases 1-2 and the listed ones
 
 The line before the last is a JSON object {"kernels": [...]}: for each
-kernel its launch count on its CLI run (phase 4, 4b, 6b or 7b, counts
+kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
 reset before the run), its worst error against its plain version, its time
 beside the plain version's and beside its bound at the main path's
 shapes. The last line is {"ok": true, "device": {...}}; with --only, no
@@ -184,7 +199,8 @@ def _seeded_state(cfg, device, seed, warm_steps=2):
 
 def _errors(got, want, rtol, atol_rel, bf16_ulp=False):
     """(max abs err, max err / allowed, bitwise-equal share); the scale of
-    atol is per species for (3, Q, NY, NX) populations."""
+    atol is per species for (3, Q, NY, NX) and (3, Q, NZ, NY, NX)
+    populations."""
     import torch
     g64, w64 = got.double(), want.double()
     err = (g64 - w64).abs()
@@ -194,8 +210,9 @@ def _errors(got, want, rtol, atol_rel, bf16_ulp=False):
         allowed = torch.where(mag == 0, torch.zeros_like(err),
                               torch.exp2(exp - 8.0))
     else:
-        if w64.dim() == 4:
-            scale = w64.abs().amax(dim=(1, 2, 3), keepdim=True)
+        if w64.dim() in (4, 5):
+            scale = w64.abs().amax(dim=tuple(range(1, w64.dim())),
+                                   keepdim=True)
         else:
             scale = w64.abs().max()
         allowed = atol_rel * scale + rtol * w64.abs()
@@ -424,8 +441,11 @@ def phase_golden():
 
 
 def _reset_launches():
+    """Every plasma kernel's launch count to 0 (the 2-D ones and the 3-D
+    collide_stream3d)."""
+    from lbm_tpu_torch.kernels import fused_step3d
     from lbm_tpu_torch.run_plasma import KERNELS
-    for mod in KERNELS.values():
+    for mod in (*KERNELS.values(), fused_step3d):
         mod.LAUNCHES = 0
 
 
@@ -1218,12 +1238,247 @@ def phase_multistep_real_size():
 
 
 
+# the 3-D kernel: bytes a site (f and g read and written, E read, rho_q
+# written) by storage, and operations a site (the JAX kernel's cost
+# estimate, lbm_tpu/kernels/fused_step3d.py:486)
+BYTES_PER_SITE_3D = {"native": 928, "bf16": 472}
+FLOP_PER_SITE_3D = 6000
+# (label, dtype, storage, neutral_delta, rtol, atol*scale); None: one bf16 ulp
+COLLIDE3D_MODES = [m for m in COLLIDE_MODES if m[0] != "bf16"]
+
+
+def _bound3d_ms(f, Ex):
+    """(least ms, "bytes" or "operations") of one collide_stream3d call on
+    these inputs: f and g read and written once, Ex, Ey, Ez read, rho_q
+    written, against FLOP_PER_SITE_3D a site at the compute type's rate."""
+    sites = Ex.numel()
+    t_bytes = ((4 * f.numel() * f.element_size() + 4 * sites
+                * Ex.element_size()) / HBM_BYTES_PER_S * 1e3)
+    rate = F64_FLOP_PER_S if Ex.element_size() == 8 else F32_FLOP_PER_S
+    t_ops = FLOP_PER_SITE_3D * sites / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _seeded_state3d(cfg, device, seed, warm_steps):
+    """The 3-D initial state after `warm_steps` plain steps, with a seeded
+    relative perturbation of ~1e-3 of f, g and Ex and an additive one of Ey
+    and Ez (made on the card from a torch.Generator)."""
+    import torch
+    from lbm_tpu_torch.models import plasma3d
+
+    state = plasma3d.init_state(cfg, device)
+    step = plasma3d.make_step(dataclasses.replace(cfg, backend="plain"))
+    for _ in range(warm_steps):
+        state = step(state)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def perturb(t, additive=0.0):
+        a = t.double()
+        noise = torch.randn(a.shape, generator=gen, device=device,
+                            dtype=torch.float64)
+        return (a * (1.0 + 1e-3 * noise) + additive * noise).to(
+            t.dtype).contiguous()
+
+    e = 1e-3 * float(state.Ex.abs().max())
+    return state._replace(f=perturb(state.f), g=perturb(state.g),
+                          Ex=perturb(state.Ex), Ey=perturb(state.Ey, e),
+                          Ez=perturb(state.Ez, e))
+
+
+def _hold3d(where, mode, k_out, p_out):
+    """Hold collide_stream3d's (f, g, rho_q) against its plain version's
+    with the phase-3 ladder; returns (max|err|, the line to print)."""
+    import torch
+    label, _, storage, _, rtol, atol = mode
+    worst, line = 0.0, []
+    for name, kg, pg in zip(("f", "g", "rho_q"), k_out, p_out):
+        require(kg.shape == pg.shape and kg.dtype == pg.dtype,
+                f"{where} {name}: shape/dtype differ")
+        require(bool(torch.isfinite(kg.float()).all()),
+                f"{where} {name}: kernel output not finite")
+        if storage == "bf16" and name != "rho_q":
+            mx, ratio, same = _errors(kg, pg, 0, 0, bf16_ulp=True)
+            tol = "1 bf16 ulp"
+        else:
+            r, a = (rtol, atol) if rtol is not None else (1e-5, 1e-6)
+            mx, ratio, same = _errors(kg, pg, r, a)
+            tol = f"rtol {r:g} atol {a:g}*scale"
+        worst = max(worst, mx)
+        line.append(f"{name} {mx:.3e} ({ratio:.3f} of {tol}, "
+                    f"{int(round(same * kg.numel()))}/{kg.numel()} bitwise)")
+        require(ratio <= 1.0, f"{where} {name}: error {ratio:.3f} x the "
+                f"tolerance ({tol})")
+    return worst, "; ".join(line)
+
+
+def phase_3d_kernel():
+    """Phase 8a; returns the worst max|err| over the f64 holds."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_step3d
+
+    print("== phase 8a: collide_stream3d vs plain version on the card")
+    device = torch.device("cuda")
+    worst_f64 = 0.0
+    for nx, ny, nz in ((12, 16, 8), (16, 16, 1), (17, 13, 2)):
+        for mode in COLLIDE3D_MODES:
+            label, dtype, storage, delta = mode[:4]
+            cfg = PlasmaConfig(NX=nx, NY=ny, NZ=nz,
+                               dtype=getattr(torch, dtype), storage=storage,
+                               neutral_delta=delta, backend="fused")
+            st = _seeded_state3d(cfg, device, nz * 10000 + ny * 100 + nx, 2)
+            args = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+            phys = phys_of(cfg)
+            k_out = fused_step3d.collide_stream3d(*args, **phys)
+            p_out = fused_step3d.collide_stream3d_reference(*args, **phys)
+            torch.cuda.synchronize()
+            where = f"{label} {nx}x{ny}x{nz}"
+            mx, line = _hold3d(where, mode, k_out, p_out)
+            if dtype == "float64":
+                worst_f64 = max(worst_f64, mx)
+            print(f"{where:>22}: {line}")
+    return worst_f64
+
+
+def phase_3d_cli():
+    """Phase 8b; returns (launches, (ms, plain_ms, bound_ms, bound_by, at),
+    max|err| of the hold) of collide_stream3d on the CLI's default run."""
+    import torch
+    from lbm_tpu_torch import run_plasma3d
+    from lbm_tpu_torch.kernels import fused_step3d
+    from lbm_tpu_torch.models import plasma3d
+
+    print("== phase 8b: 3-D CLI defaults (64^2x64, 50 steps, FFT, fused)")
+    _reset_launches()
+    _reset_cavity_launches()
+    summary = run_plasma3d.main(["--out", os.path.join(OUT, "plasma3d")])
+    launches = fused_step3d.LAUNCHES
+    require(summary["launches"]["collide_stream3d"] == launches == 50,
+            f"3-D CLI launched collide_stream3d {launches} times, want 50")
+    require(summary["finite"], "3-D CLI state not finite")
+    require(summary["device"] == torch.cuda.get_device_name(0)
+            and summary["backend"] == "fused", f"3-D CLI ran on "
+            f"{summary['device']}, backend {summary['backend']}")
+    # the kernel against its plain version on the run's end state
+    cfg = run_plasma3d.build_config(run_plasma3d.parse_args([]))
+    st = summary["state"]
+    args = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+    phys = phys_of(cfg)
+    mode = COLLIDE_MODES[3]   # f32+delta, the CLI's default
+    err, line = _hold3d("8b end state", mode,
+                        fused_step3d.collide_stream3d(*args, **phys),
+                        fused_step3d.collide_stream3d_reference(*args, **phys))
+    ms = _device_ms(lambda: fused_step3d.collide_stream3d(*args, **phys), 50)
+    plain_ms = _time_ms(
+        lambda: fused_step3d.collide_stream3d_reference(*args, **phys), 3)
+    bound, bound_by = _bound3d_ms(st.f, st.Ex)
+    print(f"{launches} launches, finite; {summary['wall_ms'] / 50:.4f} "
+          f"ms/step with slices ({summary['mlups']:.1f} MLUPS); kernel vs "
+          f"plain on the end state: {line}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}")
+    # f64, 3 steps: the neutral mass is conserved (tests/test_plasma3d.py)
+    f64 = run_plasma3d.main(["--f64", "--steps", "3", "--slice-every", "0",
+                             "--out", os.path.join(OUT, "plasma3d_f64")])
+    cfg64 = run_plasma3d.build_config(run_plasma3d.parse_args(["--f64"]))
+    m0 = float(plasma3d.init_state(cfg64, torch.device("cuda")).f[2].sum())
+    m3 = float(f64["state"].f[2].sum())
+    drift = abs(m3 - m0) / m0
+    require(f64["finite"] and f64["launches"]["collide_stream3d"] == 3,
+            f"3-D f64 run: finite {f64['finite']}, launches "
+            f"{f64['launches']}")
+    require(drift < 1e-12, f"3-D f64 neutral mass drift {drift:.3e} >= "
+            f"1e-12 after 3 steps")
+    print(f"f64, 3 steps: neutral mass drift {drift:.3e} (gate 1e-12)")
+    return launches, (ms, plain_ms, bound, bound_by,
+                      "64x64x64 f32+delta, the CLI's end state"), err
+
+
+# label, n, nz, storage; bench.py's 3-D legs (bench.py:506-516) and their
+# neighbours
+CELLS_3D = [
+    ("128^3 bf16+delta", 128, 128, "bf16"),
+    ("128^3 f32+delta", 128, 128, "native"),
+    ("256^3 bf16+delta", 256, 256, "bf16"),
+    ("512^2x64 bf16+delta", 512, 64, "bf16"),
+    ("1024^2x32 bf16+delta", 1024, 32, "bf16"),
+]
+# the cross-sections where the JAX package routes to its split pair
+# (fused_split3d, f32 ~152-192^2, bf16 ~216-256^2) and its y-paneled kernel
+# (fused_panel3d, 512^2-1024^2), at NZ = 4
+SHAPE_HOLDS_3D = [(192, "native"), (256, "bf16"), (512, "bf16"),
+                  (1024, "bf16")]
+
+
+def phase_3d_real_size():
+    """Phase 8c; returns the worst max|err| of the shape holds."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_step3d
+    from lbm_tpu_torch.models import plasma3d
+
+    print("== phase 8c: 3-D real sizes, FFT (CUDA events) and shape holds")
+    device = torch.device("cuda")
+    warm, steps = 2, 6
+    for label, n, nz, storage in CELLS_3D:
+        cfg = PlasmaConfig(NX=n, NY=n, NZ=nz, dtype=torch.float32,
+                           storage=storage, neutral_delta=True,
+                           backend="fused")
+        phys = phys_of(cfg)
+        state, step_ms = _window(plasma3d.make_step(cfg),
+                                 plasma3d.init_state(cfg, device), warm, steps)
+        require(all(bool(torch.isfinite(t.float()).all())
+                    for t in (state.f, state.g, state.Ex, state.Ey,
+                              state.Ez)),
+                f"{label}: state not finite after {warm + steps} steps")
+        args = (state.f, state.g, state.Ex, state.Ey, state.Ez)
+        ms = _device_ms(lambda: fused_step3d.collide_stream3d(*args, **phys),
+                        10)
+        rho_q = fused_step3d.collide_stream3d(*args, **phys)[2]
+        solve_ms = _time_ms(lambda: plasma3d.efield_periodic3d(
+            plasma3d.solve_fft3d(rho_q)), 10)
+        bound, bound_by = _bound3d_ms(state.f, state.Ex)
+        sites = n * n * nz
+        line = (f"{label}: {step_ms:.4f} ms/step, "
+                f"{sites / (step_ms * 1e-3) / 1e6:.1f} MLUPS (window "
+                f"{warm}+{steps} steps); kernel {ms:.4f} ms "
+                f"({BYTES_PER_SITE_3D[storage] * sites / (ms * 1e-3) / 1e9:.0f}"
+                f" GB/s at {BYTES_PER_SITE_3D[storage]} B/site; bound "
+                f"{bound:.4f} ms by {bound_by}, {100 * bound / ms:.1f}%); "
+                f"solve+E {solve_ms:.4f} ms")
+        if n == 128:
+            plain_ms = _time_ms(lambda: fused_step3d.collide_stream3d_reference(
+                *args, **phys), 3)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(line)
+        del state, args, rho_q
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for n, storage in SHAPE_HOLDS_3D:
+        mode = COLLIDE_MODES[3 if storage == "native" else 5]
+        cfg = PlasmaConfig(NX=n, NY=n, NZ=4, dtype=torch.float32,
+                           storage=storage, neutral_delta=True,
+                           backend="fused")
+        phys = phys_of(cfg)
+        st = _seeded_state3d(cfg, device, n, 1)
+        args = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+        where = f"{n}^2x4 {mode[0]}"
+        mx, line = _hold3d(where, mode,
+                           fused_step3d.collide_stream3d(*args, **phys),
+                           fused_step3d.collide_stream3d_reference(*args,
+                                                                   **phys))
+        worst = max(worst, mx)
+        print(f"shape hold {where}: {line}")
+        del st, args
+        torch.cuda.empty_cache()
+    return worst
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
-    ap.add_argument("--only", default=None, metavar="3,4,5,6,7",
+    ap.add_argument("--only", default=None, metavar="3,4,5,6,7,8",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -1265,6 +1520,11 @@ def main(argv=None) -> int:
         others["collide_stream_multistep"], err_7c = \
             timed(phase_multistep_real_size)
         multistep_err = max(multistep_err, err_7c)
+    if run("8"):
+        err_3d = timed(phase_3d_kernel)
+        launches["collide_stream3d"], others["collide_stream3d"], err_8b = \
+            timed(phase_3d_cli)
+        err_3d = max(err_3d, err_8b, timed(phase_3d_real_size))
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -1301,7 +1561,10 @@ def main(argv=None) -> int:
              "phases 6a and 6c, every case"),
             ("collide_stream_multistep", "fused_multistep.cu",
              "lbm_tpu/kernels/fused_multistep.py:504", multistep_err,
-             "phase 7a f64 every mode, and the 7c holds")):
+             "phase 7a f64 every mode, and the 7c holds"),
+            ("collide_stream3d", "fused_step3d.cu",
+             "lbm_tpu/kernels/fused_step3d.py:416", err_3d,
+             "phase 8a f64, the 8b end state and the 8c holds")):
         ms, plain_ms, bound, bound_by, at = others[name]
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,

@@ -250,3 +250,8 @@ def preset_plasma_1024() -> PlasmaConfig:
 def preset_plasma_4096() -> PlasmaConfig:
     """Config #4: 4096^2 plasma (the reference's multi-device size)."""
     return PlasmaConfig(NX=4096, NY=4096, nsteps=100)
+
+
+def preset_plasma_3d(n: int = 64, nz: int = 64) -> PlasmaConfig:
+    """Config #5: the D3Q19 3-D plasma column (models/plasma3d)."""
+    return PlasmaConfig(NX=n, NY=n, NZ=nz, nsteps=50)

@@ -113,6 +113,10 @@ SIGNATURES = {
     "lbm_collide_stream": [_CI, _CI, *[_VP] * 7, _CI, _CI, _VP, _VP],
     "lbm_collide": [_CI, _CI, *[_VP] * 7, _CI, _CI, _VP, _VP],
     "lbm_host_params_size": [],
+    # mode, delta, f, g, Ex, Ey, Ez, f_out, g_out, rho_q, NZ, NY, NX, params,
+    # stream
+    "lbm_plasma3d_collide_stream": [_CI, _CI, *[_VP] * 8, _CI, _CI, _CI, _VP,
+                                    _VP],
     # dtype, kind, interior_only, omega, max_iter, tol, phi0, rho, scratch,
     # out, err_ring, sweeps, NY, NX, stream
     "lbm_solve_iter": [_CI, _CI, _CI, _CD, _CI, _CD, *[_VP] * 6, _CI, _CI,

@@ -43,6 +43,6 @@ def fused_collide(
                 cs2=cs2, kb=kb, neutral_ref=neutral_ref)
     if f.device.type == "cpu":
         return collide_reference(f, g, Ex, Ey, **phys)
-    out = launch_collide("lbm_collide", _MODES, f, g, Ex, Ey, phys)
+    out = launch_collide("lbm_collide", _MODES, f, g, (Ex, Ey), phys)
     LAUNCHES += 1
     return out

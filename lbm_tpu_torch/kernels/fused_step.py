@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from ..constants import D2Q9
+from ..constants import D2Q9, D3Q19
 from ..ops.collide import collide, species_scalars
 from ..ops.macros import update_macro
 from ..ops.stream import stream_periodic
@@ -64,8 +64,9 @@ class HostParams(ctypes.Structure):
 def host_params(*, taus, q_e, q_i, m_e, m_i, cs2, kb,
                 neutral_ref) -> HostParams:
     """The kernel's constants, folded in double with the same Python
-    expressions as ops/macros.py and ops/collide.py. Read-only once built
-    (cached: the step passes the same physics every call)."""
+    expressions as ops/macros.py and ops/collide.py (the 3-D kernel,
+    fused_step3d.cu, takes them too; the cs9 fields are D2Q9's). Read-only
+    once built (cached: the step passes the same physics every call)."""
     q = D2Q9.Q
     charge = (q_e, q_i, 0.0)
     mass = (m_e, m_i, 1.0)
@@ -128,49 +129,58 @@ def collide_stream_reference(f, g, Ex, Ey, **phys
             stream_periodic(g_post).to(g.dtype), rho_q)
 
 
-def _check_inputs(name, modes, f, g, Ex, Ey) -> int:
-    """Validate what the kernel takes; returns its mode from `modes`."""
-    tensors = (f, g, Ex, Ey)
+def _check_inputs(name, modes, f, g, *fields) -> int:
+    """Validate what a plasma kernel takes: f and g of shape (3, Q, *grid)
+    (D2Q9 on a 2-D grid, D3Q19 on a 3-D one) and the fields of shape grid,
+    contiguous on one CUDA device; returns the kernel's mode from `modes`."""
+    tensors = (f, g, *fields)
     devices = {t.device for t in tensors}
     if len(devices) != 1 or f.device.type != "cuda":
-        raise ValueError(f"{name}: f, g, Ex, Ey must lie on one CUDA "
+        raise ValueError(f"{name}: f, g and the fields must lie on one CUDA "
                          f"device (or all on the CPU), got {sorted(map(str, devices))}")
-    mode = modes.get((f.dtype, Ex.dtype))
-    if mode is None or g.dtype != f.dtype or Ey.dtype != Ex.dtype:
-        raise TypeError(f"{name}: unsupported dtypes f={f.dtype} "
-                        f"g={g.dtype} Ex={Ex.dtype} Ey={Ey.dtype}; the kernel "
-                        f"takes (storage, field) dtypes {sorted(map(str, modes))}")
-    if (f.dim() != 4 or tuple(f.shape[:2]) != (3, D2Q9.Q)
-            or g.shape != f.shape or Ex.shape != f.shape[2:]
-            or Ey.shape != Ex.shape):
-        raise ValueError(f"{name}: shapes f={tuple(f.shape)} "
-                         f"g={tuple(g.shape)} Ex={tuple(Ex.shape)} "
-                         f"Ey={tuple(Ey.shape)}; want (3, 9, NY, NX) and (NY, NX)")
+    field = fields[0]
+    mode = modes.get((f.dtype, field.dtype))
+    dtypes = [str(t.dtype) for t in tensors]
+    if (mode is None or g.dtype != f.dtype
+            or any(t.dtype != field.dtype for t in fields)):
+        raise TypeError(f"{name}: unsupported dtypes {dtypes} (f, g, "
+                        f"fields); the kernel takes (storage, field) dtypes "
+                        f"{sorted(map(str, modes))}")
+    grid = tuple(field.shape)
+    q = {2: D2Q9.Q, 3: D3Q19.Q}.get(len(grid))
+    shapes = [tuple(t.shape) for t in tensors]
+    if (tuple(f.shape) != (3, q, *grid) or g.shape != f.shape
+            or any(t.shape != field.shape for t in fields)):
+        raise ValueError(f"{name}: shapes {shapes} (f, g, fields); want "
+                         f"(3, 9, NY, NX) and (NY, NX), or (3, 19, NZ, NY, "
+                         f"NX) and (NZ, NY, NX)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     return mode
 
 
-def launch_collide(entry: str, modes: dict, f, g, Ex, Ey, phys: dict
+def launch_collide(entry: str, modes: dict, f, g, fields, phys: dict
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Check the inputs and launch csrc/fused_step.cu's `entry` into fresh
-    (f, g, rho_q) buffers; raises if the build or the launch fails."""
-    mode = _check_inputs(entry, modes, f, g, Ex, Ey)
+    """Check the inputs and launch the plasma kernel `entry` (arguments
+    mode, delta, f, g, *fields, f_out, g_out, rho_q, *grid, params, stream)
+    into fresh (f, g, rho_q) buffers; raises if the build or the launch
+    fails."""
+    mode = _check_inputs(entry, modes, f, g, *fields)
     lib = build.load()
     if lib.lbm_host_params_size() != ctypes.sizeof(HostParams):
         raise RuntimeError("HostParams layout differs between "
                            "csrc/plasma_site.cuh and its ctypes mirror")
     hp = host_params(**phys)
-    NY, NX = Ex.shape
     f_new = torch.empty_like(f)
     g_new = torch.empty_like(g)
-    rho_q = torch.empty_like(Ex)
+    rho_q = torch.empty_like(fields[0])
     stream = torch.cuda.current_stream(f.device).cuda_stream
     with torch.cuda.device(f.device):
         err = getattr(lib, entry)(
             mode, int(phys["neutral_ref"] != 0.0), f.data_ptr(), g.data_ptr(),
-            Ex.data_ptr(), Ey.data_ptr(), f_new.data_ptr(), g_new.data_ptr(),
-            rho_q.data_ptr(), NY, NX, ctypes.addressof(hp), stream)
+            *(t.data_ptr() for t in fields), f_new.data_ptr(),
+            g_new.data_ptr(), rho_q.data_ptr(), *fields[0].shape,
+            ctypes.addressof(hp), stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
     return f_new, g_new, rho_q
@@ -193,6 +203,6 @@ def collide_stream(
                 cs2=cs2, kb=kb, neutral_ref=neutral_ref)
     if f.device.type == "cpu":
         return collide_stream_reference(f, g, Ex, Ey, **phys)
-    out = launch_collide("lbm_collide_stream", _MODES, f, g, Ex, Ey, phys)
+    out = launch_collide("lbm_collide_stream", _MODES, f, g, (Ex, Ey), phys)
     LAUNCHES += 1
     return out

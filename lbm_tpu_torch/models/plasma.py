@@ -48,8 +48,9 @@ def check_supported(cfg: PlasmaConfig) -> None:
     yet, naming the ROADMAP item that will bring each."""
     gaps = []
     if cfg.NZ:
-        gaps.append("NZ>0 (3-D column, and its multistep: ROADMAP Queue 1 "
-                    "item 12)")
+        gaps.append("NZ>0 in the 2-D model (the 3-D column is "
+                    "models/plasma3d, ROADMAP Queue 1 item 12; its multistep "
+                    "is item 14)")
     if cfg.fft_engine == "pallas":
         gaps.append("fft_engine='pallas' (ROADMAP Queue 2 item 11)")
     if cfg.compat.debug_variant:

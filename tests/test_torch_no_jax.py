@@ -1,4 +1,5 @@
-"""lbm_tpu_torch imports and runs without JAX (the GPU machine has none)."""
+"""lbm_tpu_torch imports and runs without JAX (the GPU machine has none):
+every module, the 2-D, multistep, cavity and 3-D CLIs."""
 import os
 import subprocess
 import sys
@@ -27,6 +28,14 @@ _SCRIPT = textwrap.dedent("""
     out = cavity_main(["--device", "cpu", "--nx", "16", "--steps", "3",
                        "--out", sys.argv[1] + "/cavity"])
     assert out["finite"] and out["state"].step == 3, out
+    from lbm_tpu_torch.run_plasma3d import main as plasma3d_main
+    out = plasma3d_main(["--device", "cpu", "--n", "8", "--nz", "4",
+                         "--steps", "2", "--slice-every", "2",
+                         "--out", sys.argv[1] + "/3d"])
+    assert out["finite"] and out["state"].step == 2, out
+    for m in ("ops.d3", "models.plasma3d", "kernels.fused_step3d",
+              "run_plasma3d"):
+        assert "lbm_tpu_torch." + m in sys.modules, m
     assert not any(n == "lbm_tpu" or n.startswith(("lbm_tpu.", "jax."))
                    for n in sys.modules), "JAX or lbm_tpu was imported"
     print("NO_JAX_OK")
