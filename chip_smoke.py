@@ -79,6 +79,23 @@ phase fails:
      128^3); and the kernel held against its plain version at the cross-
      sections where the JAX package routes to its split pair and panel
      kernel: 192^2 f32 + delta and 256^2, 512^2, 1024^2 bf16 + delta, NZ=4.
+  9a. the spectral solve kernel (solve_fft_efield_tpu) vs its plain
+     version (the permuted four-step, full-f32 products) at 1e-5 of scale,
+     at 128^2, 128x256, 256x128, 256^2, 2048^2, 4096^2, 128x16384 and
+     16384x128 on seeded rho (amplitude 1e-8), and on the rho_q of a warm
+     seeded 2048^2 state; also vs the k-space cuFFT route
+     (ops.poisson.solve_fft_efield) at 2e-5, the float64 answer at 1e-5,
+     and the phi route (solve_fft + efield_periodic) at 2e-5 on the small
+     grids (printed elsewhere); at 2048^2 and 4096^2 the kernel's device ms
+     beside the phi route's; a 32768-long axis is refused;
+  9b. the 2-D fused step with fft_engine="pallas" at 2048^2, f32 and bf16 +
+     delta, 5 warm-up + 30 timed steps: one solve launch a step (counts
+     reset before the run), ms/step, MLUPS, the kernel's device ms beside
+     its bound, the plain version's and the two library routes'; the state
+     finite, phi never formed, the kernel held on the end state's rho_q;
+  9c. the --debug-variant --debug-dump CLI at 8x8 f64, FFT, on the card,
+     against the C++ debug dump ref_dump_solver3 at rtol 3e-6 / atol
+     max(3e-6*scale, 1e-15), every field of all 25 (step, stage) pairs.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -86,9 +103,10 @@ Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
-reset before the run), its worst error against its plain version, its time
-beside the plain version's and beside its bound at the main path's
-shapes. The last line is {"ok": true, "device": {...}}; with --only, no
+reset before the run; 9b's step run for the spectral solve), its worst
+error against its plain version, its time beside the plain version's,
+beside its bound and, where one PyTorch call computes the same function,
+beside that call's (library_ms), at the main path's shapes. The last line is {"ok": true, "device": {...}}; with --only, no
 kernels line and no ok line are printed. Needs no JAX.
 """
 from __future__ import annotations
@@ -153,10 +171,12 @@ def phase_environment():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"nvcc: {nvcc[-1] if nvcc else '?'}")
-    # float32 products stay in full float32 (the port has no matmuls or
-    # convolutions on its path; stated for the record)
+    # float32 products stay in full float32 (the spectral solve's plain
+    # version multiplies by DFT matrices, as JAX's Precision.HIGHEST; TF32
+    # would miss its 1e-5 gate for the wrong reason)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def phase_build():
@@ -469,11 +489,13 @@ def phase_sor_bounceback():
                            else int(poisson_iter.LAST_SWEEPS))
     want_launches = {
         "fused": {"collide_stream": steps, "fused_collide": 0,
-                  "solve_iter": steps, "collide_stream_multistep": 0},
+                  "solve_iter": steps, "collide_stream_multistep": 0,
+                  "fft_solve": 0},
         "pallas": {"collide_stream": 0, "fused_collide": steps,
-                   "solve_iter": steps, "collide_stream_multistep": 0},
+                   "solve_iter": steps, "collide_stream_multistep": 0,
+                   "fft_solve": 0},
         "plain": {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
-                  "collide_stream_multistep": 0}}
+                  "collide_stream_multistep": 0, "fft_solve": 0}}
     for backend, summary in runs.items():
         require(summary["launches"] == want_launches[backend],
                 f"{backend}: launches {summary['launches']}, want "
@@ -1087,7 +1109,7 @@ def phase_multistep_golden():
                                os.path.join(OUT, "golden_multistep")])
     launches = summary["launches"]
     want = {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
-            "collide_stream_multistep": 25}
+            "collide_stream_multistep": 25, "fft_solve": 0}
     require(launches == want, f"launches {launches}, want {want}")
     require(summary["finite"], "golden multistep state is not finite")
     worst = 0.0
@@ -1472,13 +1494,292 @@ def phase_3d_real_size():
         torch.cuda.empty_cache()
     return worst
 
+# the spectral solve kernel: the shapes phase 9a holds (both A = 1 axes, the
+# 2-D step's real sizes and the longest axes a block holds), and those where
+# the phi route (solve_fft + efield_periodic) is also a gate: the JAX
+# package's own gate shapes for it (tests/test_fft_tpu.py:48-57) and the
+# 128/256 grids. At larger or longer grids the phi route's own f32 error
+# against the float64 answer reaches the gate (it differences a potential
+# whose low modes grow with the grid), so there it is printed, not gated.
+FFT_SHAPES = [(128, 128), (128, 256), (256, 128), (256, 256), (2048, 2048),
+              (4096, 4096), (128, 16384), (16384, 128)]
+FFT_PHI_GATE_SHAPES = {(128, 128), (128, 256), (256, 128), (256, 256),
+                       (512, 256), (128, 512)}
+FFT_BYTES_PER_SITE = 12          # rho read, Ex and Ey written, f32
+FFT_PASS_BYTES_PER_SITE = 44     # three passes through a complex f32 scratch
+
+
+def _fft_bound_ms(ny, nx):
+    """(least ms, "bytes" or "operations") of one solve: 12 B a site
+    against 2 x 5 N log2 N flop (a forward and an inverse 2-D complex
+    transform of N sites) at the f32 rate."""
+    n = ny * nx
+    t_bytes = FFT_BYTES_PER_SITE * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 5 * n * np.log2(n) / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _field_err(got, want):
+    """(max |err| over Ex and Ey, the same over the larger field's scale)."""
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    scale = max(float(w.double().abs().max()) for w in want)
+    return err, err / scale
+
+
+def _hold_fft(where, rho, gate_phi):
+    """The kernel on rho against its plain version (1e-5 of scale), the
+    k-space cuFFT route (2e-5), the float64 answer (1e-5) and, where
+    gate_phi, the phi route (2e-5); returns (max|err| vs plain, line)."""
+    import torch
+    from lbm_tpu_torch.kernels import fft_tpu
+    from lbm_tpu_torch.ops import poisson
+
+    got = fft_tpu.solve_fft_efield_tpu(rho)
+    torch.cuda.synchronize()
+    require(all(bool(g.isfinite().all()) for g in got),
+            f"{where}: kernel output not finite")
+    checks = [
+        ("plain", fft_tpu.solve_fft_efield_reference(rho), 1e-5),
+        ("kspace", poisson.solve_fft_efield(rho), 2e-5),
+        ("f64", poisson.solve_fft_efield(rho.double()), 1e-5),
+        ("phi", poisson.efield_periodic(poisson.solve_fft(rho)),
+         2e-5 if gate_phi else None)]
+    parts, worst = [], None
+    for name, want, gate in checks:
+        err, rel = _field_err(got, want)
+        if name == "plain":
+            worst = err
+        parts.append(f"{name} {rel:.3e}" + ("" if gate else " (not gated)"))
+        if gate is not None:
+            require(rel <= gate, f"{where}: kernel vs {name} {rel:.3e} of "
+                    f"scale > {gate:g}")
+    return worst, "; ".join(parts)
+
+
+def phase_fft_kernel():
+    """Phase 9a; returns the worst max|err| against the plain version."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fft_tpu, fused_step
+    from lbm_tpu_torch.ops import poisson
+
+    print("== phase 9a: spectral solve kernel vs plain version, "
+          "errors over the field scale")
+    device = torch.device("cuda")
+    worst = 0.0
+    for ny, nx in FFT_SHAPES:
+        rng = np.random.default_rng(ny * 7 + nx)
+        rho = torch.as_tensor(rng.standard_normal((ny, nx)) * 1e-8,
+                              dtype=torch.float32, device=device)
+        err, line = _hold_fft(f"{ny}x{nx} seeded", rho,
+                              (ny, nx) in FFT_PHI_GATE_SHAPES)
+        worst = max(worst, err)
+        if ny == nx >= 2048:
+            ms = _device_ms(lambda: fft_tpu.solve_fft_efield_tpu(rho), 20)
+            phi_ms = _time_ms(lambda: poisson.efield_periodic(
+                poisson.solve_fft(rho)), 20)
+            bound, bound_by = _fft_bound_ms(ny, nx)
+            line += (f"; kernel {ms:.4f} ms (bound {bound:.4f} by "
+                     f"{bound_by}), solve_fft + efield_periodic "
+                     f"{phi_ms:.4f} ms")
+        print(f"{ny}x{nx} seeded rho: {line}")
+    # the rho_q of a warm seeded 2048^2 state (two plain steps)
+    cfg = PlasmaConfig(NX=2048, NY=2048, dtype=torch.float32,
+                       backend="fused")
+    st = _seeded_state(cfg, device, seed=2048)
+    rho_q = fused_step.collide_stream(st.f, st.g, st.Ex, st.Ey,
+                                      **phys_of(cfg))[2]
+    err, line = _hold_fft("2048x2048 warm rho_q", rho_q, False)
+    worst = max(worst, err)
+    print(f"2048x2048 warm state's rho_q: {line}")
+    try:
+        fft_tpu.solve_fft_efield_tpu(torch.zeros((128, 32768),
+                                                 device=device))
+        raise SmokeFailure("a 32768-long axis was not refused")
+    except ValueError as e:
+        print(f"128x32768 refused: {e}")
+    del st, rho_q
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _pass_ms(fn, reps, names):
+    """Device ms per call of each kernel whose name holds one of `names`,
+    from a torch.profiler trace of `reps` calls (None where the trace
+    holds no device time for it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        for name in names:
+            if name in ev.key and us:
+                out[name] = (out[name] or 0.0) + us / 1e3 / reps
+    return out
+
+
+def phase_fft_real_size():
+    """Phase 9b: the 2-D fused step with fft_engine="pallas" at 2048^2;
+    returns (launches of the f32 run, (ms, plain_ms, bound_ms, bound_by,
+    library_ms, at), max|err| of the holds)."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fft_tpu, fused_step
+    from lbm_tpu_torch.models import plasma
+    from lbm_tpu_torch.ops import poisson
+
+    print("== phase 9b: 2048^2 FFT + periodic, fft_engine='pallas', fused, "
+          "5 warm-up + 30 timed steps")
+    n, warm, steps = 2048, 5, 30
+    device = torch.device("cuda")
+    out, worst = None, 0.0
+    for storage in ("native", "bf16"):
+        label = "f32" if storage == "native" else "bf16+delta"
+        cfg = PlasmaConfig(NX=n, NY=n, dtype=torch.float32, backend="fused",
+                           storage=storage, neutral_delta=storage == "bf16",
+                           fft_engine="pallas")
+        phys = phys_of(cfg)
+        step = plasma.make_step(cfg)
+        state = plasma.init_state(cfg, device)
+        _reset_launches()
+        state, step_ms = _window(step, state, warm, steps)
+        launches = fft_tpu.LAUNCHES
+        require(launches == fused_step.LAUNCHES == warm + steps,
+                f"{label}: {launches} solve and {fused_step.LAUNCHES} "
+                f"collide launches in {warm + steps} steps")
+        require(all(bool(torch.isfinite(t.float()).all())
+                    for t in (state.f, state.g, state.Ex, state.Ey)),
+                f"{label}: state not finite after {warm + steps} steps")
+        require(not state.phi.any(), f"{label}: phi was formed")
+        args = (state.f, state.g, state.Ex, state.Ey)
+        rho_q = fused_step.collide_stream(*args, **phys)[2]
+        err, line = _hold_fft(f"9b {label} end state", rho_q, False)
+        worst = max(worst, err)
+        ms = _device_ms(lambda: fft_tpu.solve_fft_efield_tpu(rho_q), steps)
+        kern_ms = _time_ms(lambda: fused_step.collide_stream(*args, **phys),
+                           steps)
+        phi_ms = _time_ms(lambda: poisson.efield_periodic(
+            poisson.solve_fft(rho_q)), steps)
+        kspace_ms = _time_ms(lambda: poisson.solve_fft_efield(rho_q), steps)
+        plain_ms = _time_ms(
+            lambda: fft_tpu.solve_fft_efield_reference(rho_q), 3)
+        bound, bound_by = _fft_bound_ms(n, n)
+        pass_ms = FFT_PASS_BYTES_PER_SITE * n * n / HBM_BYTES_PER_S * 1e3
+        if storage == "native":
+            passes = _pass_ms(lambda: fft_tpu.solve_fft_efield_tpu(rho_q),
+                              steps, ("rows_forward", "cols_solve",
+                                      "rows_inverse"))
+            print("   the passes, torch.profiler: " + ", ".join(
+                f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
+                for k, v in passes.items()))
+        print(f"{label:>10}: {step_ms:.4f} ms/step, "
+              f"{n * n / (step_ms * 1e-3) / 1e6:.1f} MLUPS; {launches} solve "
+              f"launches in {warm + steps} steps (1 a step); solve kernel "
+              f"{ms:.4f} ms (bound {bound:.4f} ms by {bound_by}, "
+              f"{100 * bound / ms:.1f}%; {FFT_PASS_BYTES_PER_SITE} B/site of "
+              f"three passes: {pass_ms:.4f} ms); library: solve_fft + "
+              f"efield_periodic {phi_ms:.4f} ms, solve_fft_efield "
+              f"{kspace_ms:.4f} ms; plain four-step {plain_ms:.4f} ms; "
+              f"collide_stream {kern_ms:.4f} ms; end-state hold: {line}")
+        if out is None:
+            out = (launches, (ms, plain_ms, bound, bound_by, phi_ms,
+                              f"{n}x{n} f32, the 9b end state's rho_q"))
+        del state, args, rho_q, step
+        torch.cuda.empty_cache()
+    return out[0], out[1], worst
+
+
+def _parse_dump(path, NX=8, NY=8):
+    """-> {(step, stage): {field: (NY, NX) array, 'f_e': {dir: grid}, ...}}
+    from a debug dump (the parser of tests/test_reference_parity.py)."""
+    scalars = {"ux_e", "uy_e", "ux_i", "uy_i", "ux_n", "uy_n", "rho_q",
+               "rho_e", "rho_i", "rho_n"}
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        lines = [ln.rstrip("\n") for ln in fh]
+    out, cur, i = {}, None, 0
+
+    def grid(i):
+        rows = [[float(v) for v in lines[i + r].split(",")]
+                for r in range(NY)]
+        return np.asarray(rows)[::-1], i + NY   # y descending in the file
+
+    while i < len(lines):
+        ln = lines[i]
+        if ln.startswith("step = "):
+            key = (int(ln.split("=")[1]), lines[i + 1].split("=")[1].strip())
+            cur = out[key] = {}
+            i += 2
+            continue
+        if cur is not None and (ln in scalars or ln == "Ex"):
+            name = ln if ln != "Ex" else ("Ey" if "Ex" in cur else "Ex")
+            cur[name], i = grid(i + 1)
+            continue
+        m = re.match(r"(f(?:_eq)?_[ein](?:_[ein])?) dir (\d+)", ln)
+        if cur is not None and m:
+            g, i = grid(i + 1)
+            cur.setdefault(m.group(1), {})[int(m.group(2))] = g
+            continue
+        i += 1
+    return out
+
+
+def phase_debug_dump():
+    """Phase 9c: the --debug-variant --debug-dump CLI at 8x8 f64, FFT, on
+    the card, against the C++ debug build's dump."""
+    import torch
+    from lbm_tpu_torch import run_plasma
+
+    print("== phase 9c: --debug-variant --debug-dump CLI, 8x8 f64 FFT, "
+          "against the C++ debug dump")
+    out = os.path.join(OUT, "debug_dump")
+    summary = run_plasma.main(["--device", "cuda", "--f64", "--nx", "8",
+                               "--ny", "8", "--steps", "5", "--poisson",
+                               "FFT", "--debug-variant", "--debug-dump",
+                               "--out", out])
+    require(summary["device"] == torch.cuda.get_device_name(0)
+            and summary["backend"] == "plain" and summary["finite"],
+            f"debug CLI ran on {summary['device']}, backend "
+            f"{summary['backend']}, finite {summary['finite']}")
+    mine = _parse_dump(os.path.join(out, "debug_dump.txt"))
+    ref = _parse_dump(os.path.join(HERE, "tests", "fixtures",
+                                   "ref_dump_solver3.txt.gz"))
+    require(set(mine) == set(ref) and len(ref) == 25,
+            f"dump covers {len(mine)} (step, stage) pairs, want the "
+            f"fixture's {len(ref)}")
+    worst = 0.0
+    for key in sorted(ref):
+        for field, want in ref[key].items():
+            got = mine[key].get(field)
+            require(got is not None, f"{field} missing at {key}")
+            if isinstance(want, dict):
+                want = np.stack([want[d] for d in range(9)])
+                got = np.stack([got[d] for d in range(9)])
+            scale = np.abs(want).max()
+            err = np.abs(got - want)
+            allowed = 3e-6 * np.abs(want) + max(3e-6 * scale, 1e-15)
+            ratio = float((err / allowed).max())
+            worst = max(worst, ratio)
+            require(ratio <= 1.0, f"{field} at {key}: {ratio:.3f} x the rtol "
+                    f"3e-6 / atol max(3e-6*scale, 1e-15) gate")
+    print(f"25 (step, stage) pairs, every field within the gate (worst "
+          f"{worst:.3f} of it); {summary['wall_ms']:.1f} ms wall")
+
 
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
-    ap.add_argument("--only", default=None, metavar="3,4,5,6,7,8",
+    ap.add_argument("--only", default=None, metavar="3,4,5,6,7,8,9",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -1525,6 +1826,12 @@ def main(argv=None) -> int:
         launches["collide_stream3d"], others["collide_stream3d"], err_8b = \
             timed(phase_3d_cli)
         err_3d = max(err_3d, err_8b, timed(phase_3d_real_size))
+    if run("9"):
+        fft_err = timed(phase_fft_kernel)
+        launches["solve_fft_efield_tpu"], fft_times, err_9b = \
+            timed(phase_fft_real_size)
+        fft_err = max(fft_err, err_9b)
+        timed(phase_debug_dump)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -1572,6 +1879,16 @@ def main(argv=None) -> int:
             "max_abs_err": err, "max_abs_err_at": err_at, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "ms_at": at})
+    ms, plain_ms, bound, bound_by, library_ms, at = fft_times
+    kernels.append({
+        "name": "solve_fft_efield_tpu", "route": "cuda",
+        "source": CSRC + "fft_solve.cu",
+        "replaces": "lbm_tpu/kernels/fft_tpu.py:330",
+        "launches": launches["solve_fft_efield_tpu"], "max_abs_err": fft_err,
+        "max_abs_err_at": "phase 9a every shape, and the 9b end states",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": library_ms, "ms_at": at,
+        "library": "solve_fft + efield_periodic (torch.fft, cuFFT)"})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -134,6 +134,8 @@ SIGNATURES = {
     # mode, delta, solve_kind, window (MultistepHost*), params, stream
     "lbm_plasma_multistep": [_CI, _CI, _CI, _VP, _VP, _VP],
     "lbm_multistep_host_size": [],
+    # rho, tw_x, tw_y, sym_x, sym_y, scratch, ex, ey, NY, NX, stream
+    "lbm_fft_solve_efield": [*[_VP] * 8, _CI, _CI, _VP],
 }
 
 

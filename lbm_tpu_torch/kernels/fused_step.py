@@ -107,12 +107,15 @@ def collide_reference(
     f: torch.Tensor, g: torch.Tensor, Ex: torch.Tensor, Ey: torch.Tensor, *,
     taus, q_e: float, q_i: float, m_e: float, m_i: float,
     cs2: float, kb: float, neutral_ref: float = 0.0,
+    guard_vals: Tuple[float, float, float] = (0.0, 0.0, 0.0),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """update_macro + collide: (f_post, g_post, rho_q) in Ex's dtype; bf16
-    storage takes the bf16 thermal forms with an exact reciprocal."""
+    storage takes the bf16 thermal forms with an exact reciprocal.
+    guard_vals (the debug variant's, on the plain backend only) is no
+    argument of the kernels."""
     fc, gc = f.to(Ex.dtype), g.to(Ex.dtype)
     mac = update_macro(fc, gc, Ex, Ey, q_e=q_e, q_i=q_i, m_e=m_e, m_i=m_i,
-                       neutral_ref=neutral_ref)
+                       guard_vals=guard_vals, neutral_ref=neutral_ref)
     f_post, g_post = collide(
         fc, gc, mac, Ex, Ey, taus=taus, q_e=q_e, q_i=q_i, m_e=m_e, m_i=m_i,
         cs2=cs2, kb=kb, neutral_ref=neutral_ref,

@@ -4,7 +4,11 @@
 The step replicates the reference's time loop (src/plasma.cpp:476-523):
 macros -> equilibria -> collide -> stream (periodic or bounce-back) ->
 Poisson solve (NONE, GS, SOR, FFT or NPS) -> E. With cfg.multistep = K the
-rollout runs K steps per kernel launch (kernels/fused_multistep.py).
+rollout runs K steps per kernel launch (kernels/fused_multistep.py). The FFT
+solve runs torch.fft (fft_engine "xla" or "auto") or the spectral CUDA
+kernel of kernels/fft_tpu.py ("pallas"), which never forms phi.
+CompatFlags.debug_variant replicates the reference's debug predecessor build
+on the plain backend (models/plasma_staged.py dumps it stage by stage).
 check_supported refuses what the port does not run yet, with the ROADMAP
 item that brings it.
 
@@ -20,7 +24,7 @@ import torch
 
 from ..config import BC, PlasmaConfig, PoissonSolver
 from ..constants import D2Q9
-from ..kernels import poisson_iter
+from ..kernels import fft_tpu, poisson_iter
 from ..kernels.collide_pallas import fused_collide
 from ..kernels.fused_multistep import collide_stream_multistep
 from ..kernels.fused_step import collide_reference, collide_stream
@@ -51,10 +55,6 @@ def check_supported(cfg: PlasmaConfig) -> None:
         gaps.append("NZ>0 in the 2-D model (the 3-D column is "
                     "models/plasma3d, ROADMAP Queue 1 item 12; its multistep "
                     "is item 14)")
-    if cfg.fft_engine == "pallas":
-        gaps.append("fft_engine='pallas' (ROADMAP Queue 2 item 11)")
-    if cfg.compat.debug_variant:
-        gaps.append("debug_variant (ROADMAP Queue 1 item 9)")
     if cfg.dtype not in _NUMPY_DTYPES:
         gaps.append(f"dtype {cfg.dtype} (the port computes in float32 or "
                     f"float64)")
@@ -103,13 +103,52 @@ def init_state(cfg: PlasmaConfig, device) -> PlasmaState:
     )
 
 
+def guard_values(cfg: PlasmaConfig) -> Tuple[float, float, float]:
+    """What the momentum == +/-rho guard assigns per species: 0, or in the
+    debug variant 0.01 cs2, 1e-5 cs2, 0 (lbm_tpu/models/plasma.py:319)."""
+    cs2 = cfg.units().cs2
+    return ((0.01 * cs2, 0.00001 * cs2, 0.0) if cfg.compat.debug_variant
+            else (0.0, 0.0, 0.0))
+
+
 def compute_macros(cfg: PlasmaConfig, state: PlasmaState) -> Macros:
     """Macroscopic fields for observation (same op as the step)."""
     u = cfg.units()
     return update_macro(state.f.to(cfg.dtype), state.g.to(cfg.dtype),
                         state.Ex, state.Ey,
                         q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
+                        guard_vals=guard_values(cfg),
                         neutral_ref=u.rho_n_init if cfg.neutral_delta else 0.0)
+
+
+def _use_pallas_fft(cfg: PlasmaConfig, shape) -> bool:
+    """Resolve cfg.fft_engine for this grid (lbm_tpu/models/plasma.py:94):
+    "xla" is torch.fft; "pallas" the spectral CUDA kernel (on CPU tensors
+    its plain version), which needs both axes (power of two) * 128 and
+    float32; "auto" resolves to torch.fft, as the JAX package resolves it
+    to XLA."""
+    if cfg.fft_engine != "pallas":
+        return False
+    if not fft_tpu.supports(*shape):
+        raise ValueError(f"fft_engine='pallas' needs both grid axes = "
+                         f"power-of-two * 128, got {tuple(shape)}")
+    if cfg.dtype != torch.float32:
+        # the kernel computes in f32; silently downgrading an f64 parity
+        # run's E field would be a trap
+        raise ValueError("fft_engine='pallas' is f32-only (the xla engine "
+                         "serves f64 parity runs)")
+    return True
+
+
+def reconstruct_phi(cfg: PlasmaConfig, state: PlasmaState) -> torch.Tensor:
+    """The potential of the CURRENT state's charge density.
+
+    The pallas FFT path never forms phi (state.phi goes stale); this
+    recomputes one. The state's Ex/Ey derive from the PRE-step rho_q, so
+    this phi, the solve of the post-step rho_q, is one step ahead of the
+    stored E: the warm start a resumed run's first solve would produce, not
+    -grad^-1 of the stored E."""
+    return poisson_ops.solve_fft(compute_macros(cfg, state).rho_q)
 
 
 def _use_iter_kernel(cfg: PlasmaConfig) -> bool:
@@ -151,6 +190,10 @@ def _solve_poisson(
             # FFT under bounce-back: the reference returns without solving
             # (src/poisson.cpp:76-77); E keeps its previous value.
             return Ex, Ey, phi
+        if _use_pallas_fft(cfg, rho_q.shape):
+            # phi is not formed on this path; reconstruct_phi serves it
+            Ex2, Ey2 = fft_tpu.solve_fft_efield_tpu(rho_q)
+            return Ex2, Ey2, phi
         phi = poisson_ops.solve_fft(rho_q)
         Ex2, Ey2 = poisson_ops.efield_periodic(phi)
         return Ex2, Ey2, phi
@@ -202,13 +245,23 @@ def make_step(cfg: PlasmaConfig) -> Callable[[PlasmaState], PlasmaState]:
     bounce-back edge fixups; "pallas": the collide-only kernel, then
     streaming in torch; "plain": the eager ops. The plain and pallas steps
     round bf16 storage once per step, at the final write (pallas refuses
-    bf16, as the JAX package does)."""
+    bf16, as the JAX package does).
+
+    debug_variant (plain backend only): the debug build's guard values,
+    pre-collision g in the bounce-back corner holes (its own g temp
+    buffers), and the external field zeroed after step 0 for every solver
+    (plasma_debug.cpp:1558-1566)."""
     check_supported(cfg)
     u = cfg.units()
     periodic = cfg.bc == BC.PERIODIC
     storage_bf16 = cfg.storage == "bf16"
     if storage_bf16 and cfg.backend == "pallas":
         raise ValueError("bf16 storage supports the plain and fused backends")
+    debug_variant = cfg.compat.debug_variant
+    if debug_variant and cfg.backend != "plain":
+        raise ValueError("debug_variant mode is plain-backend only")
+    if cfg.poisson == PoissonSolver.FFT and periodic:
+        _use_pallas_fft(cfg, (cfg.NY, cfg.NX))   # refuse a bad engine now
     neutral_ref = u.rho_n_init if cfg.neutral_delta else 0.0
     phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
                 cs2=u.cs2, kb=u.kb, neutral_ref=neutral_ref)
@@ -235,26 +288,37 @@ def make_step(cfg: PlasmaConfig) -> Callable[[PlasmaState], PlasmaState]:
 
     # update_macro + collide in cfg.dtype (bf16 storage: the kernel's
     # partial-fraction thermal algebra), or the collide-only kernel
-    collide_stage = (fused_collide if cfg.backend == "pallas"
-                     else collide_reference)
+    if cfg.backend == "pallas":
+        collide_stage, stage_kw = fused_collide, phys
+    else:
+        collide_stage = collide_reference
+        stage_kw = dict(phys, guard_vals=guard_values(cfg))
 
     def plain_step(state: PlasmaState) -> PlasmaState:
         f_post, g_post, rho_q = collide_stage(state.f, state.g, state.Ex,
-                                              state.Ey, **phys)
+                                              state.Ey, **stage_kw)
         if periodic:
             f = stream_periodic(f_post)
             g = stream_periodic(g_post)
         else:
             # The reference's recycled temp buffers leak stale values into
             # the corner holes: pre-collision f for the f-streaming,
-            # post-collision f for the g-streaming (ops/stream.py).
+            # post-collision f for the g-streaming (ops/stream.py). The
+            # debug build has its own g temp buffers, so its g holes keep
+            # the pre-collision g.
             f = stream_bounceback(f_post, stale=state.f.to(cfg.dtype))
-            g_holes = _g_holes_with_background(
-                stream_ops.hole_values(f_post), neutral_ref)
-            g = stream_ops.bounceback_from_periodic(stream_periodic(g_post),
-                                                    g_holes)
+            if debug_variant:
+                g = stream_bounceback(g_post, stale=state.g.to(cfg.dtype))
+            else:
+                g_holes = _g_holes_with_background(
+                    stream_ops.hole_values(f_post), neutral_ref)
+                g = stream_ops.bounceback_from_periodic(
+                    stream_periodic(g_post), g_holes)
         Ex, Ey, phi = _solve_poisson(cfg, rho_q, state.phi, state.Ex,
                                      state.Ey)
+        if debug_variant and state.step == 0:
+            # the "pulsed" external field: zeroed at the end of step 0
+            Ex, Ey = torch.zeros_like(Ex), torch.zeros_like(Ey)
         if storage_bf16:
             f = f.to(torch.bfloat16)
             g = g.to(torch.bfloat16)

@@ -33,6 +33,11 @@ def equilibrium_polys(ux: torch.Tensor, uy: torch.Tensor,
     return out
 
 
+def equilibrium_from_polys(amp: torch.Tensor, polys) -> List[torch.Tensor]:
+    """eq_i = w_i * amp * poly_i (the direct form's multiply order)."""
+    return [_W[i] * amp * polys[i] for i in range(D2Q9.Q)]
+
+
 def equilibrium_wpolys(ux: torch.Tensor, uy: torch.Tensor,
                        cs2: float) -> List[torch.Tensor]:
     """w_i * poly_i: the weight folded into the shared polynomial."""

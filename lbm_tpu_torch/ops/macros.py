@@ -8,6 +8,7 @@ with the reference's three stability guards, which are part of the golden
 trajectory (reference: src/plasma.cpp:317-456):
   * rho_s < 1e-10   -> cell zeroed (rho, u, T)
   * momentum == +/-rho (exact fp equality) -> that velocity component zeroed
+    (set to guard_vals in the debug predecessor variant)
   * rho_q < 1e-15   -> 0 (signed comparison: negative charge is clamped too)
 
 Moment sums accumulate sequentially in direction order 0..8, never with
@@ -19,7 +20,7 @@ Pair axis order: 0=(e,i), 1=(e,n), 2=(i,n).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,10 +93,12 @@ def update_macro(
     q_i: float,
     m_e: float,
     m_i: float,
+    guard_vals: Tuple[float, float, float] = (0.0, 0.0, 0.0),
     neutral_ref: float = 0.0,
 ) -> Macros:
-    """The momentum==+/-rho guard assigns 0, as the final reference does
-    (the debug predecessor's guard values are ROADMAP Queue 1 item 9).
+    """guard_vals: the per-species value the momentum==+/-rho guard
+    assigns (0 in the final reference; 0.01*cs2 / 1e-5*cs2 / 0 in the debug
+    predecessor variant).
 
     neutral_ref != 0: f[2] holds deviations delta_i from the uniform
     background neutral_ref * w_i, so rho_n = neutral_ref + Sum_i delta_i
@@ -112,8 +115,9 @@ def update_macro(
         alive = rho >= 1e-10
         safe_rho = torch.where(alive, rho, 1.0)
         inv_rho = 1.0 / safe_rho  # one division shared by both components
-        ux = torch.where((px == rho) | (px == -rho), 0.0, px * inv_rho)
-        uy = torch.where((py == rho) | (py == -rho), 0.0, py * inv_rho)
+        gv = guard_vals[s]
+        ux = torch.where((px == rho) | (px == -rho), gv, px * inv_rho)
+        uy = torch.where((py == rho) | (py == -rho), gv, py * inv_rho)
         if qom[s] != 0.0:
             # half-step Guo force correction (src/plasma.cpp:389-390)
             ux = ux + (0.5 * qom[s]) * Ex

@@ -55,6 +55,55 @@ def solve_fft(rho_q: torch.Tensor) -> torch.Tensor:
     return phi.to(rho_q.dtype)
 
 
+@functools.lru_cache(maxsize=8)
+def _gradient_symbols(NY: int, NX: int, dtype: torch.dtype,
+                      device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sin(2 pi kx/NX), sin(2 pi ky/NY)) times the inverse eigenvalue on
+    the rfft2 half spectrum, built in float64 numpy and cast once."""
+    ky = np.fft.fftfreq(NY) * NY
+    kx = np.arange(NX // 2 + 1)
+    siny2 = np.sin(np.pi * ky / NY) ** 2
+    sinx2 = np.sin(np.pi * kx / NX) ** 2
+    denom = 4.0 * (siny2[:, None] + sinx2[None, :])
+    inv = np.where(denom > 1e-15, 1.0 / np.maximum(denom, 1e-300), 0.0)
+    sx = np.sin(2.0 * np.pi * kx / NX)[None, :] * inv
+    sy = np.sin(2.0 * np.pi * ky / NY)[:, None] * inv
+    return (torch.as_tensor(sx, dtype=dtype, device=device),
+            torch.as_tensor(sy, dtype=dtype, device=device))
+
+
+def solve_fft_efield(rho_q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spectral solve with E computed in k-space; phi is never formed
+    (lbm_tpu/ops/poisson.py:216).
+
+    efield_periodic's central difference has the k-space symbol
+    Ex_hat = -i sin(2 pi kx/NX) phi_hat (and sin(2 pi ky/NY) for Ey), so
+    both fields come from rho_hat. After the y-axis inverse each row of
+    Wx, Wy is Hermitian in kx (Ex, Ey are real), so D = Wx + i Wy,
+    Hermitian-extended to the full width, inverts in ONE complex transform
+    to z = Ex + i Ey. Algebraically solve_fft + efield_periodic; rounding
+    differs at transform roundoff. This is the library (cuFFT) route, not
+    the kernel of kernels/fft_tpu.py."""
+    NY, NX = rho_q.shape
+    H = NX // 2 + 1
+    rho_hat = torch.fft.rfft2(rho_q)
+    sx, sy = _gradient_symbols(NY, NX, rho_hat.real.dtype, rho_q.device)
+    pr, pi = rho_hat.real, rho_hat.imag
+    # E_hat = -i s phi_hat: re = s im(phi_hat), im = -s re(phi_hat)
+    ex_hat = torch.complex(sx * pi, -(sx * pr))
+    ey_hat = torch.complex(sy * pi, -(sy * pr))
+    w = torch.fft.ifft(torch.stack([ex_hat, ey_hat]), dim=1)  # y inverse
+    wx, wy = w[0], w[1]
+    d_head = wx + torch.complex(-wy.imag, wy.real)            # wx + i wy
+    # kx = H..NX-1: conj(wx[:, NX-kx]) + i conj(wy[:, NX-kx])
+    tx = torch.flip(wx[:, 1:NX - H + 1], dims=(1,)).conj()
+    ty = torch.flip(wy[:, 1:NX - H + 1], dims=(1,)).conj()
+    d_tail = tx + torch.complex(-ty.imag, ty.real)
+    z = torch.fft.ifft(torch.cat([d_head, d_tail], dim=1), dim=1)
+    return z.real.to(rho_q.dtype), z.imag.to(rho_q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _checker_masks(NX: int, NY: int, interior_only: bool
                    ) -> Tuple[np.ndarray, np.ndarray]:

@@ -10,6 +10,8 @@ CSV.
     python scripts/run_plasma_torch.py --preset 1024 --poisson GS --backend pallas
     python scripts/run_plasma_torch.py --multistep 8          # 8 steps a launch
     python scripts/run_plasma_torch.py --device cpu --nx 64 --ny 64 --steps 6
+    python scripts/run_plasma_torch.py --device cpu --nx 8 --ny 8 --steps 5 \
+        --f64 --poisson FFT --debug-variant --debug-dump   # C++ dump format
 
 Defaults: --backend fused (the CUDA collide+stream kernel; GS/SOR/NPS
 solve in the CUDA solve kernel) on --device cuda. --multistep K runs K
@@ -17,8 +19,11 @@ steps per launch of the CUDA window kernel, every solver and wall type in
 the kernel; probes are then sampled once per window. --backend pallas runs
 the collide-only CUDA kernel and streams in torch. There is no silent CPU
 fallback: without a GPU, --device cuda raises; only an explicit --device
-cpu runs on the CPU, with the plain backend. main(argv) returns a summary
-dict (the probe series and each kernel's launch count included).
+cpu runs on the CPU, with the plain backend. --debug-variant replicates the
+reference's debug build (plain backend); --debug-dump writes every pipeline
+stage of every step in its dump format (grids with NX < 11; the staged plain
+step). main(argv) returns a summary dict (the probe series and each
+kernel's launch count included).
 """
 from __future__ import annotations
 
@@ -30,14 +35,16 @@ from typing import Optional, Sequence
 import torch
 
 from . import config as C
-from .io import probes, timing
-from .kernels import collide_pallas, fused_multistep, fused_step, poisson_iter
-from .models import plasma
+from .io import debug_dump, probes, timing
+from .kernels import (collide_pallas, fft_tpu, fused_multistep, fused_step,
+                      poisson_iter)
+from .models import plasma, plasma_staged
 
 # each kernel wrapper's module, by the name of its TPU counterpart
 KERNELS = {"collide_stream": fused_step, "fused_collide": collide_pallas,
            "solve_iter": poisson_iter,
-           "collide_stream_multistep": fused_multistep}
+           "collide_stream_multistep": fused_multistep,
+           "fft_solve": fft_tpu}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -69,6 +76,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "WINDOW boundaries (every K steps) instead of every "
                         "step: use the default per-step marching when the "
                         "reference's per-step probe series is the point")
+    p.add_argument("--debug-dump", action="store_true",
+                   help="per-stage grid dumps on small grids (NX<11) in the "
+                        "C++ debug build's exact format (all 5 pipeline "
+                        "stages every step); runs the staged plain step")
+    p.add_argument("--debug-variant", action="store_true",
+                   help="replicate the 'Plasma debug' predecessor build "
+                        "(guard values, step-0 E pulse, true periodic "
+                        "iterative sweeps) on the plain backend: the "
+                        "configuration of the C++ debug_dump fixtures")
     p.add_argument("--out", default=os.path.join("build", "output", "torch"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
@@ -105,7 +121,17 @@ def build_config(args: argparse.Namespace) -> C.PlasmaConfig:
         if args.f64:
             raise SystemExit("--storage bf16 is an f32 fast mode (drop --f64)")
         over["storage"] = args.storage
+    if args.debug_variant:
+        # the C++ debug build's behaviour set (tests/test_reference_parity.py)
+        over["compat"] = C.CompatFlags(
+            none_solver_kills_external_field=False,
+            dirichlet_iterative_under_periodic=False,
+            debug_variant=True)
+        over["backend"] = "plain"  # debug_variant mode is plain-backend only
     if args.multistep:
+        if args.debug_dump or args.debug_variant:
+            raise SystemExit("--multistep fuses whole windows; per-step/"
+                             "per-stage dumps need per-step marching")
         over["multistep"] = args.multistep
         over["backend"] = "fused"
     try:
@@ -139,6 +165,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rollouts = {k: plasma.make_rollout(cfg, k)
                 for k in {stride, cfg.nsteps % stride} if k}
     rec = probes.ProbeRecorder(cfg.NX, cfg.NY, device)
+    dmp = staged = None
+    if args.debug_dump:
+        dmp = debug_dump.DebugDumper(cfg, os.path.join(args.out,
+                                                       "debug_dump.txt"))
+        if dmp.enabled:
+            # per-stage dumps need the stage-granular step; tiny grids only
+            staged = plasma_staged.make_staged_step(cfg)
+            feq = plasma_staged.init_feq(cfg, device)
     launches0 = {k: m.LAUNCHES for k, m in KERNELS.items()}
 
     timer = timing.StepTimer(cfg.NX, cfg.NY)
@@ -149,13 +183,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         # of iteration t (the pre-step state) and the post-Poisson E of the
         # same iteration, which lives on the post-step state. Under
         # --multistep a row is a window: the macros before it, E after it.
-        mac = plasma.compute_macros(cfg, state)
-        state = rollouts[k](state)
+        if staged is not None:
+            state, feq, stages = staged(state, feq)
+            mac = stages["UpdateMacro"].mac
+            for stage in plasma_staged.STAGES:
+                dmp.dump_stage(t, stage, stages[stage])
+        else:
+            mac = plasma.compute_macros(cfg, state)
+            state = rollouts[k](state)
         timer.tick(k)
         rec.record(mac, state.Ex, state.Ey)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall_ms = timer.wall_s * 1000
+    if dmp is not None:
+        dmp.close()
 
     series = rec.as_arrays()
     rec.save_csv(os.path.join(args.out, "graphs"))

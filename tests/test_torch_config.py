@@ -74,8 +74,6 @@ def test_backend_names():
 @pytest.mark.parametrize("fields, item", [
     ({"multistep": 4, "backend": "fused", "NZ": 16,
       "poisson": tcfg.PoissonSolver.NONE}, "Queue 1 item 12"),
-    ({"fft_engine": "pallas"}, "Queue 2 item 11"),
-    ({"compat": tcfg.CompatFlags(debug_variant=True)}, "Queue 1 item 9"),
     ({"NZ": 16}, "Queue 1 item 12"),
 ])
 def test_unsupported_configs_raise(fields, item):
@@ -94,7 +92,10 @@ def test_unsupported_configs_raise(fields, item):
     {"poisson": tcfg.PoissonSolver.NONE},
     {"backend": "pallas"},
     {"backend": "fused", "multistep": 4},
-], ids=["bounceback", "GS", "SOR", "NPS", "NONE", "pallas", "multistep"])
+    {"fft_engine": "pallas", "NX": 128, "NY": 128},
+    {"compat": tcfg.CompatFlags(debug_variant=True)},
+], ids=["bounceback", "GS", "SOR", "NPS", "NONE", "pallas", "multistep",
+        "fft_engine_pallas", "debug_variant"])
 def test_configs_refused_before_the_solvers_and_walls_now_run(fields):
     cfg = dataclasses.replace(tcfg.PlasmaConfig(NX=8, NY=8,
                                                 poisson_max_iter=5), **fields)
@@ -102,6 +103,19 @@ def test_configs_refused_before_the_solvers_and_walls_now_run(fields):
     assert state.step == 1
     assert all(bool(torch.isfinite(t).all())
                for t in (state.f, state.g, state.Ex, state.Ey, state.phi))
+
+
+@pytest.mark.parametrize("fields", [
+    {"compat": tcfg.CompatFlags(debug_variant=True), "backend": "fused"},
+    {"compat": tcfg.CompatFlags(debug_variant=True), "backend": "pallas"},
+    {"fft_engine": "pallas", "NX": 200, "NY": 200},
+    {"fft_engine": "pallas", "NX": 128, "NY": 128, "dtype": torch.float64},
+], ids=["debug_variant_fused", "debug_variant_pallas", "fft_engine_pallas_200",
+        "fft_engine_pallas_f64"])
+def test_step_refuses_what_the_jax_step_refuses(fields):
+    cfg = dataclasses.replace(tcfg.PlasmaConfig(NX=8, NY=8), **fields)
+    with pytest.raises(ValueError):
+        tplasma.make_step(cfg)
 
 
 # ---------------------------------------------------------------------------

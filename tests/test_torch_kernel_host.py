@@ -1,5 +1,5 @@
-"""The 3-D kernel's per-site code, built for the CPU, against its plain
-version.
+"""The 3-D kernel's per-site code and the spectral solve's transforms,
+built for the CPU, against their plain versions.
 
 lbm_tpu_torch/kernels/csrc/plasma3d_site.cuh holds all the arithmetic of
 csrc/fused_step3d.cu (moments, guards, collide, push-stream stores). With
@@ -12,6 +12,14 @@ bit, in f64, f32 and bf16 storage, with and without neutral-delta storage,
 on seeded warm states at 12x16x8, 16x16x1 and 17x13x2 (x, y, z). This holds
 the kernel's expression trees on every change here; chip_smoke.py phase 8a
 holds the CUDA build on the card.
+
+lbm_tpu_torch/kernels/csrc/fft_solve.cuh holds the three per-block programs
+of csrc/fft_solve.cu (row forward, column solve, row inverse), whose
+block-stride loops become serial loops on the host; a loop over the blocks
+then does what the grid does. Its radix-2 transforms sum in another order
+than the plain version's permuted four-step, so the host build is held at
+1e-5 of scale (chip_smoke.py phase 9a's gate for the CUDA build) at 128x256
+and 256x128, on seeded charge densities.
 """
 import ctypes
 import dataclasses
@@ -23,7 +31,7 @@ import pytest
 import torch
 
 from lbm_tpu_torch.config import PlasmaConfig
-from lbm_tpu_torch.kernels import fused_step3d
+from lbm_tpu_torch.kernels import fft_tpu, fused_step3d
 from lbm_tpu_torch.kernels.build import CSRC
 from lbm_tpu_torch.kernels.fused_step import _MODES, host_params
 from lbm_tpu_torch.models import plasma3d
@@ -183,3 +191,71 @@ def test_site_code_matches_plain_version_bitwise(host_kernel, shape):
             assert torch.equal(a, b), (
                 f"{storage} {dtype} delta={delta} {name}: "
                 f"{int((a != b).sum())} of {a.numel()} elements differ")
+
+
+_FFT_HOST = r"""
+#include <vector>
+
+#include "fft_solve.cuh"
+
+using namespace fftsolve;
+
+extern "C" int host_fft_solve(const float* rho, const float* tw_x,
+                              const float* tw_y, const float* sym_x,
+                              const float* sym_y, float* scratch, float* ex,
+                              float* ey, int NY, int NX) {
+  const Tables tb{tw_x, tw_y, sym_x, sym_y,
+                  1.0f / (static_cast<float>(NY) * static_cast<float>(NX))};
+  const int R = rows_per_block(NY, NX), P = cols_per_panel(NY, NX);
+  std::vector<float> row(2 * plane_floats(R, NX));
+  std::vector<float> col(2 * plane_floats(P, NY));
+  float* row_im = row.data() + plane_floats(R, NX);
+  float* col_im = col.data() + plane_floats(P, NY);
+  for (int b = 0; b < NY / R; ++b)
+    rows_forward_block(b, rho, scratch, tb, row.data(), row_im, NY, NX, R);
+  for (int b = 0; b < NX / P; ++b)
+    cols_solve_block(b, scratch, tb, col.data(), col_im, NY, NX, P);
+  for (int b = 0; b < NY / R; ++b)
+    rows_inverse_block(b, scratch, ex, ey, tb, row.data(), row_im, NY, NX, R);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_fft(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the transform code with")
+    d = tmp_path_factory.mktemp("host_fft")
+    src, lib = d / "host_fft.cpp", d / "libhostfft.so"
+    src.write_text(_FFT_HOST)
+    r = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
+                        "-fno-fast-math", "-fPIC", "-shared", f"-I{CSRC}",
+                        str(src), "-o", str(lib)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    so = ctypes.CDLL(str(lib))
+    so.host_fft_solve.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+    so.host_fft_solve.restype = ctypes.c_int
+    return so
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (256, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fft_solve_header_matches_plain_version(host_fft, shape):
+    NY, NX = shape
+    for seed, amp in ((1, 1e-8), (2, 1.0)):
+        rho = (np.random.default_rng(seed).standard_normal(shape)
+               * amp).astype(np.float32)
+        tables = fft_tpu.kernel_tables(NY, NX)
+        scratch = np.empty((NY, NX, 2), np.float32)
+        ex, ey = np.empty(shape, np.float32), np.empty(shape, np.float32)
+        assert host_fft.host_fft_solve(
+            *(a.ctypes.data for a in (rho, *tables, scratch, ex, ey)),
+            NY, NX) == 0
+        want = fft_tpu.solve_fft_efield_reference(torch.from_numpy(rho))
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(float(np.abs(g - w.numpy()).max())
+                  for g, w in zip((ex, ey), want))
+        assert err < 1e-5 * scale, f"seed {seed}: {err / scale:.3e} of scale"

@@ -1,5 +1,5 @@
 """lbm_tpu_torch imports and runs without JAX (the GPU machine has none):
-every module, the 2-D, multistep, cavity and 3-D CLIs."""
+every module, the 2-D, multistep, debug-dump, cavity and 3-D CLIs."""
 import os
 import subprocess
 import sys
@@ -33,8 +33,15 @@ _SCRIPT = textwrap.dedent("""
                          "--steps", "2", "--slice-every", "2",
                          "--out", sys.argv[1] + "/3d"])
     assert out["finite"] and out["state"].step == 2, out
+    out = main(["--device", "cpu", "--f64", "--nx", "8", "--ny", "8",
+                "--steps", "2", "--poisson", "FFT", "--debug-variant",
+                "--debug-dump", "--out", sys.argv[1] + "/dbg"])
+    assert out["finite"] and out["state"].step == 2, out
+    with open(sys.argv[1] + "/dbg/debug_dump.txt") as fh:
+        assert fh.read().count("stage = ") == 10
     for m in ("ops.d3", "models.plasma3d", "kernels.fused_step3d",
-              "run_plasma3d"):
+              "run_plasma3d", "kernels.fft_tpu", "models.plasma_staged",
+              "io.debug_dump"):
         assert "lbm_tpu_torch." + m in sys.modules, m
     assert not any(n == "lbm_tpu" or n.startswith(("lbm_tpu.", "jax."))
                    for n in sys.modules), "JAX or lbm_tpu was imported"
