@@ -96,6 +96,22 @@ phase fails:
   9c. the --debug-variant --debug-dump CLI at 8x8 f64, FFT, on the card,
      against the C++ debug dump ref_dump_solver3 at rtol 3e-6 / atol
      max(3e-6*scale, 1e-15), every field of all 25 (step, stage) pairs.
+  10a. the halo kernels (collide_stream_halo on y-shards, _halo2d on
+     (y, x) tiles): a seeded warm full grid cut into 2, 4 and 8 y-shards
+     and (2, 2), (2, 4), (4, 2) tiles, each shard's strips cut from its
+     neighbours (1-row, or 8-deep with 8-column corners on two cuts), at
+     2048^2 f32 and bf16 + delta, 512^2 f64, and ragged 24x40 and 25x22
+     tiles; every shard bitwise equal to collide_stream on the full grid
+     and within phase 3's gates of its plain version; each kernel's device
+     ms at 2048^2 (a world of one) and at 512x2048 / 1024x1024 beside its
+     bound and its plain version's;
+  10b. the sharded steps (parallel.fused_sharded) on a one-rank NCCL group
+     and a (1, 1) mesh: 2048^2 NONE f32 and bf16 + delta, 35 steps, both
+     steps bitwise equal to the single-device fused step; 512^2 f64 FFT,
+     20 steps, within 1e-11 (f, g) and 1e-9 (E) of it, each of the element
+     and of the scale; 2048^2 FFT f32, 5 warm-up + 30 timed steps: ms/step,
+     MLUPS, 35 launches of each halo kernel (counts reset just before),
+     the sharded solve's ms beside the cuFFT route's.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -103,7 +119,8 @@ Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
-reset before the run; 9b's step run for the spectral solve), its worst
+reset before the run; 9b's step run for the spectral solve; 10b's 2048^2
+FFT runs for the halo kernels), its worst
 error against its plain version, its time beside the plain version's,
 beside its bound and, where one PyTorch call computes the same function,
 beside that call's (library_ms), at the main path's shapes. The last line is {"ok": true, "device": {...}}; with --only, no
@@ -134,6 +151,8 @@ F32_FLOP_PER_S = 67e12         # non-tensor f32
 F64_FLOP_PER_S = 34e12         # non-tensor f64
 # flop per updated site and sweep: the stencil, then |new - p| and the max
 SWEEP_FLOP = {("gs", False): 8, ("gs", True): 11, ("nps", False): 14}
+# the halo kernels' launch counts in a CLI summary of a single-device run
+NO_HALO = {"collide_stream_halo": 0, "collide_stream_halo2d": 0}
 
 
 class SmokeFailure(RuntimeError):
@@ -461,12 +480,14 @@ def phase_golden():
 
 
 def _reset_launches():
-    """Every plasma kernel's launch count to 0 (the 2-D ones and the 3-D
-    collide_stream3d)."""
-    from lbm_tpu_torch.kernels import fused_step3d
+    """Every plasma kernel's launch count to 0 (the 2-D ones, the halo
+    kernels and the 3-D collide_stream3d)."""
+    from lbm_tpu_torch.kernels import fused_step, fused_step3d
     from lbm_tpu_torch.run_plasma import KERNELS
     for mod in (*KERNELS.values(), fused_step3d):
         mod.LAUNCHES = 0
+    for name in fused_step.HALO_LAUNCHES:
+        fused_step.HALO_LAUNCHES[name] = 0
 
 
 def phase_sor_bounceback():
@@ -490,12 +511,13 @@ def phase_sor_bounceback():
     want_launches = {
         "fused": {"collide_stream": steps, "fused_collide": 0,
                   "solve_iter": steps, "collide_stream_multistep": 0,
-                  "fft_solve": 0},
+                  "fft_solve": 0, **NO_HALO},
         "pallas": {"collide_stream": 0, "fused_collide": steps,
                    "solve_iter": steps, "collide_stream_multistep": 0,
-                   "fft_solve": 0},
+                   "fft_solve": 0, **NO_HALO},
         "plain": {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
-                  "collide_stream_multistep": 0, "fft_solve": 0}}
+                  "collide_stream_multistep": 0, "fft_solve": 0,
+                  **NO_HALO}}
     for backend, summary in runs.items():
         require(summary["launches"] == want_launches[backend],
                 f"{backend}: launches {summary['launches']}, want "
@@ -1109,7 +1131,7 @@ def phase_multistep_golden():
                                os.path.join(OUT, "golden_multistep")])
     launches = summary["launches"]
     want = {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
-            "collide_stream_multistep": 25, "fft_solve": 0}
+            "collide_stream_multistep": 25, "fft_solve": 0, **NO_HALO}
     require(launches == want, f"launches {launches}, want {want}")
     require(summary["finite"], "golden multistep state is not finite")
     worst = 0.0
@@ -1774,12 +1796,295 @@ def phase_debug_dump():
           f"{worst:.3f} of it); {summary['wall_ms']:.1f} ms wall")
 
 
+# phase 10: the halo kernels' cuts of a full grid, (ny, nx) shards; nx = 1
+# is a y-shard (collide_stream_halo), nx > 1 a tile (collide_stream_halo2d)
+HALO_CUTS = [(2, 1), (4, 1), (8, 1), (2, 2), (2, 4), (4, 2)]
+# strips 8 deep and y strips corner-extended by 8 (the JAX contract's) on
+# these cuts, 1-row strips with 1-column corners elsewhere
+HALO_DEEP = {(4, 1), (2, 4)}
+# (label, NY, NX, mode of COLLIDE_MODES, cuts)
+HALO_GRIDS = [
+    ("2048^2", 2048, 2048, "f32", HALO_CUTS),
+    ("2048^2", 2048, 2048, "bf16+delta", HALO_CUTS),
+    ("512^2", 512, 512, "f64", HALO_CUTS),
+    ("48x80, 24x40 tiles", 48, 80, "f32+delta", [(2, 1), (2, 2)]),
+    ("50x66, 25x22 tiles", 50, 66, "f64+delta", [(2, 1), (2, 3)]),
+]
+HALO_FLOP = {"collide_stream_halo": 3000, "collide_stream_halo2d": 3200}
+
+
+def _seeded_state_on_card(cfg, device, seed):
+    """As _seeded_state, with the perturbation drawn on the card from a
+    seeded torch generator (a 2048^2 state holds 113M populations)."""
+    import torch
+    from lbm_tpu_torch.models import plasma
+
+    state = plasma.init_state(cfg, device)
+    step = plasma.make_step(dataclasses.replace(cfg, backend="plain"))
+    for _ in range(2):
+        state = step(state)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def perturb(t, additive=0.0):
+        a = t.double()
+        noise = torch.randn(a.shape, generator=gen, device=device,
+                            dtype=torch.float64)
+        return (a * (1.0 + 1e-3 * noise) + additive * noise).to(t.dtype)
+
+    ex_scale = float(state.Ex.abs().max())
+    return state._replace(f=perturb(state.f), g=perturb(state.g),
+                          Ex=perturb(state.Ex),
+                          Ey=perturb(state.Ey, 1e-3 * ex_scale))
+
+
+def _halo_bound_ms(name, f, Ex):
+    """(least ms, "bytes" or "operations") of one halo launch on the shard
+    (f, Ex): f and g read and written, Ex and Ey read, rho_q written, and
+    the strips' edge sites read once; the operations of every site of the
+    extended block (the JAX kernels' cost estimate a site)."""
+    ny, nx = Ex.shape
+    p, e = f.element_size(), Ex.element_size()
+    tile = name == "collide_stream_halo2d"
+    edge = 2 * (nx + 2) + 2 * ny if tile else 2 * nx
+    nbytes = ny * nx * (108 * p + 3 * e) + edge * (54 * p + 2 * e)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    sites = (ny + 2) * (nx + 2 if tile else nx)
+    rate = F64_FLOP_PER_S if e == 8 else F32_FLOP_PER_S
+    t_ops = HALO_FLOP[name] * sites / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_halo_kernels():
+    """Phase 10a: each halo kernel on every shard of a cut of a full grid,
+    bitwise against collide_stream on that grid and against its plain
+    version at phase 3's gates; times at the world-of-one 2048^2 shape and
+    the 512x2048 / 1024x1024 shard shapes. Returns (worst max|err| against
+    the plain version at 512^2 f64 by kernel, {kernel: (ms, plain_ms,
+    bound_ms, bound_by, at)} at 2048^2 f32)."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_step
+
+    print("== phase 10a: halo kernels on cuts of a full grid, bitwise vs "
+          "collide_stream and vs their plain versions")
+    device = torch.device("cuda")
+    modes = {m[0]: m for m in COLLIDE_MODES}
+    kernels = {1: (fused_step.collide_stream_halo,
+                   fused_step.collide_stream_halo_reference),
+               2: (fused_step.collide_stream_halo2d,
+                   fused_step.collide_stream_halo2d_reference)}
+    names = {1: "collide_stream_halo", 2: "collide_stream_halo2d"}
+    worst = dict.fromkeys(names.values(), 0.0)
+    times = {}
+    for label, NY, NX, mode, cuts in HALO_GRIDS:
+        _, dtype, storage, delta, rtol, atol = modes[mode]
+        cfg = PlasmaConfig(NX=NX, NY=NY, dtype=getattr(torch, dtype),
+                           storage=storage, neutral_delta=delta)
+        phys = phys_of(cfg)
+        st = _seeded_state_on_card(cfg, device, seed=NY * 10000 + NX)
+        arrays = (st.f, st.g, st.Ex, st.Ey)
+        full = fused_step.collide_stream(*arrays, **phys)
+        line = []
+        for ny, nx in cuts:
+            kind = 1 if nx == 1 else 2
+            kernel, plain = kernels[kind]
+            rows, cols = NY // ny, NX // nx
+            deep = (ny, nx) in HALO_DEEP
+            ratio_max, err_max = 0.0, 0.0
+            for by in range(ny):
+                for bx in range(nx):
+                    ys = slice(by * rows, (by + 1) * rows)
+                    xs = slice(bx * cols, (bx + 1) * cols)
+                    args = fused_step.halo_inputs(
+                        arrays, ys, None if kind == 1 else xs,
+                        depth=8 if deep else 1, ext=8 if deep else 1)
+                    k_out = kernel(*args, **phys)
+                    p_out = plain(*args, **phys)
+                    torch.cuda.synchronize()
+                    for name, kg, pg, fg in zip(("f", "g", "rho_q"), k_out,
+                                                p_out, full):
+                        where = (f"{label} {mode} cut {ny}x{nx} shard "
+                                 f"({by}, {bx}) {name}")
+                        require(torch.equal(kg, fg[..., ys, xs]),
+                                f"{where}: not bitwise equal to "
+                                f"collide_stream on the full grid")
+                        if rtol is None and name != "rho_q":
+                            mx, ratio, _ = _errors(kg, pg, 0, 0,
+                                                   bf16_ulp=True)
+                        else:
+                            r, a = ((rtol, atol) if rtol is not None
+                                    else (1e-5, 1e-6))
+                            mx, ratio, _ = _errors(kg, pg, r, a)
+                        require(ratio <= 1.0, f"{where}: {ratio:.3f} x the "
+                                f"gate against the plain version")
+                        ratio_max = max(ratio_max, ratio)
+                        err_max = max(err_max, mx)
+            if mode == "f64" and NY == 512:
+                worst[names[kind]] = max(worst[names[kind]], err_max)
+            line.append(f"{ny}x{nx}{' (8-deep)' if deep else ''}: "
+                        f"{err_max:.2e} ({ratio_max:.3f} of the gate)")
+        print(f"{label:>20} {mode:>10}: every shard bitwise equal to "
+              f"collide_stream; vs plain, max|err| by cut: "
+              + ", ".join(line))
+        if NY == 2048:
+            col_ms = _device_ms(lambda: fused_step.collide_stream(
+                *arrays, **phys), 20)
+            shapes = ((1, (slice(0, NY), None)),
+                      (1, (slice(0, NY // 4), None)),
+                      (2, (slice(0, NY), slice(0, NX))),
+                      (2, (slice(0, NY // 2), slice(0, NX // 2))))
+            out = [f"collide_stream {col_ms:.4f} ms"]
+            for kind, (ys, xs) in shapes:
+                kernel, plain = kernels[kind]
+                args = fused_step.halo_inputs(arrays, ys, xs)
+                ms = _device_ms(lambda: kernel(*args, **phys), 20)
+                plain_ms = _time_ms(lambda: plain(*args, **phys), 3)
+                bound, bound_by = _halo_bound_ms(names[kind], args[0],
+                                                 args[2])
+                shape = f"{args[2].shape[0]}x{args[2].shape[1]}"
+                out.append(f"{names[kind]} {shape} {ms:.4f} ms (bound "
+                           f"{bound:.4f} by {bound_by}, "
+                           f"{100 * bound / ms:.1f}%; plain "
+                           f"{plain_ms:.4f})")
+                if mode == "f32" and ys.stop == NY:
+                    times[names[kind]] = (ms, plain_ms, bound, bound_by,
+                                          f"{shape} f32, a world of one")
+                del args
+            print(f"{'':>20} {mode:>10} timings: " + "; ".join(out))
+        del st, arrays, full
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def phase_sharded_world_of_one():
+    """Phase 10b: make_fused_sharded_step and _2d on a (1, 1) mesh over a
+    one-rank NCCL group: the exchanges are the shard's own wraps, so the
+    halo kernels run at full width. Returns the halo kernels' launches in
+    the 2048^2 FFT f32 runs (counts reset just before each)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch.config import PlasmaConfig, PoissonSolver
+    from lbm_tpu_torch.kernels import fused_step
+    from lbm_tpu_torch.models import plasma
+    from lbm_tpu_torch.ops import poisson
+    from lbm_tpu_torch.parallel import fused_sharded
+    from lbm_tpu_torch.parallel import mesh as pmesh
+    from lbm_tpu_torch.parallel import poisson as ppoisson
+
+    print("== phase 10b: the sharded steps on a one-rank NCCL group, "
+          "(1, 1) mesh")
+    store = os.path.join(OUT, "dist_store")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    device = pmesh.init_distributed(
+        "cuda", init_method=f"file://{store}/store", rank=0, world_size=1)
+    launches = {}
+    try:
+        m = pmesh.make_mesh((1, 1), "cuda")
+
+        def runs(cfg, steps):
+            """End states of the single-device fused step and the two
+            sharded steps after `steps` steps from the initial state."""
+            out = {}
+            for name, step in (
+                    ("single", plasma.make_step(cfg)),
+                    ("y", fused_sharded.make_fused_sharded_step(cfg, m)),
+                    ("yx", fused_sharded.make_fused_sharded_step_2d(cfg, m))):
+                state = plasma.init_state(cfg, device)
+                for _ in range(steps):
+                    state = step(state)
+                out[name] = state
+            torch.cuda.synchronize()
+            return out
+
+        for storage in ("native", "bf16"):
+            label = "f32" if storage == "native" else "bf16+delta"
+            cfg = PlasmaConfig(NX=2048, NY=2048, dtype=torch.float32,
+                               storage=storage,
+                               neutral_delta=storage == "bf16",
+                               poisson=PoissonSolver.NONE, backend="fused")
+            out = runs(cfg, 35)
+            for name in ("y", "yx"):
+                for k in ("f", "g", "Ex", "Ey"):
+                    require(torch.equal(getattr(out[name], k),
+                                        getattr(out["single"], k)),
+                            f"2048^2 NONE {label} {name} step: {k} not "
+                            f"bitwise equal to the single-device step")
+            print(f"2048^2 NONE {label}, 35 steps: both sharded steps "
+                  f"bitwise equal to the single-device fused step")
+            del out
+
+        cfg = PlasmaConfig(NX=512, NY=512, dtype=torch.float64,
+                           poisson=PoissonSolver.FFT, backend="fused")
+        # the JAX package's sharded tolerances (f, g 1e-11; E 1e-9), each
+        # relative to the element and to the field's (species') scale: the
+        # slab FFT sums in another order than the 2-D one, ~1e-14 of E's
+        # scale, which per element alone fails where E or g crosses zero
+        out = runs(cfg, 20)
+        line = []
+        for name in ("y", "yx"):
+            for k, rtol in (("f", 1e-11), ("g", 1e-11), ("Ex", 1e-9),
+                            ("Ey", 1e-9)):
+                mx, ratio, same = _errors(getattr(out[name], k),
+                                          getattr(out["single"], k), rtol,
+                                          rtol)
+                require(ratio <= 1.0, f"512^2 f64 FFT {name} step: {k} at "
+                        f"{ratio:.3f} x rtol {rtol:g} (element and scale)")
+                line.append(f"{name} {k} {mx:.2e} ({ratio:.4f} of the gate, "
+                            f"{100 * same:.1f}% bitwise)")
+        print("512^2 f64 FFT, 20 steps, against the single-device step "
+              "(gate rtol 1e-11 f, g and 1e-9 E, of the element and of the "
+              "scale): " + ", ".join(line))
+        del out
+
+        cfg = PlasmaConfig(NX=2048, NY=2048, dtype=torch.float32,
+                           poisson=PoissonSolver.FFT, backend="fused")
+        n, warm, steps = 2048, 5, 30
+        _, single_ms = _window(plasma.make_step(cfg),
+                               plasma.init_state(cfg, device), warm, steps)
+        for name, make in (
+                ("collide_stream_halo", fused_sharded.make_fused_sharded_step),
+                ("collide_stream_halo2d",
+                 fused_sharded.make_fused_sharded_step_2d)):
+            step = make(cfg, m)
+            state = plasma.init_state(cfg, device)
+            _reset_launches()
+            state, ms = _window(step, state, warm, steps)
+            launches[name] = dict(fused_step.HALO_LAUNCHES)[name]
+            require(dict(fused_step.HALO_LAUNCHES) == {
+                **NO_HALO, name: warm + steps} and fused_step.LAUNCHES == 0,
+                f"{name} step: launches {fused_step.HALO_LAUNCHES}, "
+                f"collide_stream {fused_step.LAUNCHES}")
+            require(all(bool(torch.isfinite(t.float()).all())
+                        for t in (state.f, state.g, state.Ex, state.Ey)),
+                    f"{name} step: state not finite")
+            rho_q = fused_step.collide_stream(state.f, state.g, state.Ex,
+                                              state.Ey, **phys_of(cfg))[2]
+            solve_ms = _device_ms(lambda: ppoisson.solve_poisson_sharded(
+                cfg, rho_q, state.phi, state.Ex, state.Ey, m), steps)
+            cufft_ms = _device_ms(lambda: poisson.efield_periodic(
+                poisson.solve_fft(rho_q)), steps)
+            print(f"2048^2 FFT f32, {name} step: {ms:.4f} ms/step, "
+                  f"{n * n / (ms * 1e-3) / 1e6:.1f} MLUPS (single-device "
+                  f"fused step {single_ms:.4f}); {launches[name]} launches "
+                  f"in {warm + steps} steps; sharded solve + E "
+                  f"{solve_ms:.4f} ms, cuFFT solve_fft + efield_periodic "
+                  f"{cufft_ms:.4f} ms")
+            del state, rho_q
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
-    ap.add_argument("--only", default=None, metavar="3,4,5,6,7,8,9",
+    ap.add_argument("--only", default=None, metavar="3,4,5,6,7,8,9,10",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -1832,6 +2137,9 @@ def main(argv=None) -> int:
             timed(phase_fft_real_size)
         fft_err = max(fft_err, err_9b)
         timed(phase_debug_dump)
+    if run("10"):
+        halo_err, halo_times = timed(phase_halo_kernels)
+        launches.update(timed(phase_sharded_world_of_one))
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -1889,6 +2197,16 @@ def main(argv=None) -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": library_ms, "ms_at": at,
         "library": "solve_fft + efield_periodic (torch.fft, cuFFT)"})
+    for name, line in (("collide_stream_halo", 337),
+                       ("collide_stream_halo2d", 566)):
+        ms, plain_ms, bound, bound_by, at = halo_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + "fused_step.cu",
+            "replaces": f"lbm_tpu/kernels/fused_step.py:{line}",
+            "launches": launches[name], "max_abs_err": halo_err[name],
+            "max_abs_err_at": "phase 10a, 512x512 f64, every cut",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "ms_at": at})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@
     (4), Ex/Ey/|E| (3) = 19 quantities.
 
 Sampling gathers 9 scalars per field on the device; the series reach the
-host in one copy when they are read.
+host in one copy when they are read. On a sharded lattice
+(ShardedProbeRecorder) each rank samples the points of its own block and
+one reduce a step brings all 9 to rank 0.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 QUANTITIES = [
     "ux_e", "uy_e", "ue_mag",
@@ -91,3 +94,27 @@ class ProbeRecorder:
             np.savetxt(os.path.join(out_dir, f"ts_{q}.csv"), arr,
                        delimiter=",",
                        header=",".join(f"p{i}" for i in range(arr.shape[1])))
+
+
+class ShardedProbeRecorder(ProbeRecorder):
+    """ProbeRecorder for one rank's block (rows, cols) of a sharded lattice:
+    each record() samples the probe points the block owns, zero elsewhere,
+    and sums the ranks' frames on rank 0 in one reduce (each point has one
+    owner, so rank 0 receives every value unchanged). Only rank 0 keeps
+    the series."""
+
+    def __init__(self, NX: int, NY: int, device, rows: slice, cols: slice):
+        super().__init__(NX, NY, device)
+        own = ((self.xs >= cols.start) & (self.xs < cols.stop)
+               & (self.ys >= rows.start) & (self.ys < rows.stop))
+        self.own = own
+        self.xs = torch.where(own, self.xs - cols.start, 0)
+        self.ys = torch.where(own, self.ys - rows.start, 0)
+
+    def record(self, mac, Ex, Ey) -> None:
+        vals = sample(mac, Ex, Ey, self.xs, self.ys)
+        frame = torch.stack([torch.where(self.own, vals[q], 0.0)
+                             for q in QUANTITIES])
+        dist.reduce(frame, dst=0)
+        if dist.get_rank() == 0:
+            self._frames.append(frame)

@@ -113,6 +113,8 @@ SIGNATURES = {
     "lbm_collide_stream": [_CI, _CI, *[_VP] * 7, _CI, _CI, _VP, _VP],
     "lbm_collide": [_CI, _CI, *[_VP] * 7, _CI, _CI, _VP, _VP],
     "lbm_host_params_size": [],
+    # mode, delta, ptr[20], f_out, g_out, rho_q, geom[7], params, stream
+    "lbm_collide_stream_halo": [_CI, _CI, *[_VP] * 7],
     # mode, delta, f, g, Ex, Ey, Ez, f_out, g_out, rho_q, NZ, NY, NX, params,
     # stream
     "lbm_plasma3d_collide_stream": [_CI, _CI, *[_VP] * 8, _CI, _CI, _CI, _VP,

@@ -18,6 +18,16 @@
 // but a push-stream in place races on a GPU, so the wrapper hands in fresh
 // output buffers. Numbers and build flags: plasma_site.cuh.
 //
+// The third mode, the halo step (entry lbm_collide_stream_halo), replaces
+// lbm_tpu/kernels/fused_step.py:collide_stream_halo (a y-shard with
+// neighbour strips) and :collide_stream_halo2d (a (y, x) tile with
+// corner-extended y strips and x strips): one thread per site of the
+// shard's block extended by the neighbours' edge rows (and columns), which
+// collides with the same collide_site and pushes into the shard only
+// (csrc/halo_site.cuh). Its output equals this kernel's on the full grid,
+// bit for bit, at every shard site. Its traffic is the periodic kernel's
+// plus the strips' edge rows; like it, it is memory-bound.
+//
 // Bound: every call reads and writes all of f and g, 27+27 values a site,
 // which is 432 B/site in f32 (216 B/site in bf16) plus 12 B of Ex, Ey and
 // rho_q, against ~3,000 flop/site: memory-bound on an H100 in f32, close
@@ -25,7 +35,7 @@
 // value read once and written once) and nothing more: wide loads, shared-
 // memory staging and in-place streaming are left to later work.
 
-#include "plasma_site.cuh"
+#include "halo_site.cuh"
 
 namespace {
 
@@ -85,6 +95,40 @@ cudaError_t launch_delta(int delta, const void* f, const void* g, const void* Ex
                                                    hp, stream);
 }
 
+template <typename S, typename T, bool DELTA, bool FAST>
+__global__ void collide_stream_halo_kernel(const HaloIn<S, T> in, S* __restrict__ f_out,
+                                           S* __restrict__ g_out, T* __restrict__ rho_q_out,
+                                           const HaloGeom gm, const Params<T> p) {
+  const int64_t esite = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (esite >= halo_sites(gm)) return;
+  collide_stream_halo_site<S, T, DELTA, FAST>(in, f_out, g_out, rho_q_out, gm, esite, p);
+}
+
+template <typename S, typename T, bool DELTA, bool FAST>
+cudaError_t launch_halo(const void* const* ptr, void* f_out, void* g_out, void* rho_q,
+                        const HaloGeom& gm, const HostParams& hp, cudaStream_t stream) {
+  constexpr int kThreads = 128;
+  const auto pop = [&](int k) { return static_cast<const S*>(ptr[k]); };
+  const auto fld = [&](int k) { return static_cast<const T*>(ptr[k]); };
+  // pointer order: (f, g, Ex, Ey) of the shard, then of up, dn, lt, rt
+  const HaloIn<S, T> in{pop(0),  pop(1),  fld(2),  fld(3),  pop(4),  pop(5),  fld(6),
+                        fld(7),  pop(8),  pop(9),  fld(10), fld(11), pop(12), pop(13),
+                        fld(14), fld(15), pop(16), pop(17), fld(18), fld(19)};
+  const unsigned blocks = static_cast<unsigned>((halo_sites(gm) + kThreads - 1) / kThreads);
+  collide_stream_halo_kernel<S, T, DELTA, FAST><<<blocks, kThreads, 0, stream>>>(
+      in, static_cast<S*>(f_out), static_cast<S*>(g_out), static_cast<T*>(rho_q), gm,
+      cast_params<T>(hp));
+  return cudaGetLastError();
+}
+
+template <typename S, typename T, bool FAST>
+cudaError_t launch_halo_delta(int delta, const void* const* ptr, void* f_out, void* g_out,
+                              void* rho_q, const HaloGeom& gm, const HostParams& hp,
+                              cudaStream_t stream) {
+  return delta ? launch_halo<S, T, true, FAST>(ptr, f_out, g_out, rho_q, gm, hp, stream)
+               : launch_halo<S, T, false, FAST>(ptr, f_out, g_out, rho_q, gm, hp, stream);
+}
+
 }  // namespace
 
 // mode: 0 = f64 storage and compute, 1 = f32, 2 = bf16 storage with f32
@@ -127,6 +171,40 @@ extern "C" int lbm_collide(int mode, int delta, const void* f, const void* g, co
     case 1:
       return launch_delta<float, float, false, false>(delta, f, g, Ex, Ey, f_out, g_out, rho_q,
                                                       NY, NX, *hp, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The halo step of one shard. ptr: 20 device pointers, (f, g, Ex, Ey) of
+// the shard, then of the up, dn, lt and rt strips (the last eight null on
+// a y-shard). geom: NY, NX of the shard, the up and dn strips' depths, the
+// y strips' corner extension (0 on a y-shard, whose x wraps; >= 1 on a
+// tile) and the lt and rt strips' widths. mode and delta as
+// lbm_collide_stream.
+extern "C" int lbm_collide_stream_halo(int mode, int delta, const void* const* ptr,
+                                       void* f_out, void* g_out, void* rho_q,
+                                       const int* geom, const HostParams* hp, void* stream) {
+  if (ptr == nullptr || geom == nullptr || hp == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HaloGeom gm{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6]};
+  const bool tile = gm.ext > 0;
+  if (gm.NY <= 0 || gm.NX <= 0 || gm.du < 1 || gm.dd < 1 || gm.ext < 0 ||
+      (tile && (gm.dl < 1 || gm.dr < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int k = 0; k < (tile ? 20 : 12); ++k)
+    if (ptr[k] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0:
+      return launch_halo_delta<double, double, false>(delta, ptr, f_out, g_out, rho_q, gm, *hp,
+                                                      st);
+    case 1:
+      return launch_halo_delta<float, float, false>(delta, ptr, f_out, g_out, rho_q, gm, *hp,
+                                                    st);
+    case 2:
+      return launch_halo_delta<__nv_bfloat16, float, true>(delta, ptr, f_out, g_out, rho_q, gm,
+                                                           *hp, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,6 +12,8 @@ CSV.
     python scripts/run_plasma_torch.py --device cpu --nx 64 --ny 64 --steps 6
     python scripts/run_plasma_torch.py --device cpu --nx 8 --ny 8 --steps 5 \
         --f64 --poisson FFT --debug-variant --debug-dump   # C++ dump format
+    torchrun --nproc-per-node 2 scripts/run_plasma_torch.py --device cpu \
+        --shard 2 --nx 32 --ny 32 --steps 3                # 2 ranks, gloo
 
 Defaults: --backend fused (the CUDA collide+stream kernel; GS/SOR/NPS
 solve in the CUDA solve kernel) on --device cuda. --multistep K runs K
@@ -22,8 +24,12 @@ fallback: without a GPU, --device cuda raises; only an explicit --device
 cpu runs on the CPU, with the plain backend. --debug-variant replicates the
 reference's debug build (plain backend); --debug-dump writes every pipeline
 stage of every step in its dump format (grids with NX < 11; the staged plain
-step). main(argv) returns a summary dict (the probe series and each
-kernel's launch count included).
+step). --shard N runs under torchrun --nproc-per-node N: each rank holds one
+block of the lattice (parallel/fused_sharded picks the mesh), on
+cuda:LOCAL_RANK over NCCL, or over gloo with --device cpu; the probes go to
+rank 0 in one collective a step, and rank 0 alone writes the CSVs.
+main(argv) returns a summary dict (the probe series, on rank 0 under
+--shard, and each kernel's launch count included).
 """
 from __future__ import annotations
 
@@ -39,12 +45,19 @@ from .io import debug_dump, probes, timing
 from .kernels import (collide_pallas, fft_tpu, fused_multistep, fused_step,
                       poisson_iter)
 from .models import plasma, plasma_staged
+from .parallel import fused_sharded, mesh as pmesh, sharding
 
 # each kernel wrapper's module, by the name of its TPU counterpart
 KERNELS = {"collide_stream": fused_step, "fused_collide": collide_pallas,
            "solve_iter": poisson_iter,
            "collide_stream_multistep": fused_multistep,
            "fft_solve": fft_tpu}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches so far: KERNELS' and the halo kernels'."""
+    return {**{k: m.LAUNCHES for k, m in KERNELS.items()},
+            **fused_step.HALO_LAUNCHES}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -85,6 +98,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "(guard values, step-0 E pulse, true periodic "
                         "iterative sweeps) on the plain backend: the "
                         "configuration of the C++ debug_dump fixtures")
+    p.add_argument("--shard", type=int, default=0, metavar="N",
+                   help="shard the lattice over N ranks (run under torchrun "
+                        "--nproc-per-node N): the halo-exchange step of "
+                        "parallel.fused_sharded.make_fused_sharded_step_auto "
+                        "(periodic walls, FFT or NONE)")
     p.add_argument("--out", default=os.path.join("build", "output", "torch"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
@@ -157,23 +175,46 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         raise SystemExit(f"--device {args.device}: want cuda[:N] or cpu")
     cfg = build_config(args)
+    if args.shard:
+        _check_shard(args, cfg)
+    # rank 0 writes the outputs; one process alone is rank 0
+    rank0 = not args.shard or int(os.environ["RANK"]) == 0
 
-    os.makedirs(args.out, exist_ok=True)
-    state = plasma.init_state(cfg, device)
+    if rank0:
+        os.makedirs(args.out, exist_ok=True)
     stride = cfg.multistep or 1
-    # one rollout per window length: stride steps, and the remainder
-    rollouts = {k: plasma.make_rollout(cfg, k)
-                for k in {stride, cfg.nsteps % stride} if k}
-    rec = probes.ProbeRecorder(cfg.NX, cfg.NY, device)
-    dmp = staged = None
+    dmp = staged = m = None
     if args.debug_dump:
         dmp = debug_dump.DebugDumper(cfg, os.path.join(args.out,
-                                                       "debug_dump.txt"))
+                                                       "debug_dump.txt")
+                                     if rank0 else os.devnull)
         if dmp.enabled:
             # per-stage dumps need the stage-granular step; tiny grids only
+            # (under --shard every rank runs it, as the JAX CLI does)
             staged = plasma_staged.make_staged_step(cfg)
             feq = plasma_staged.init_feq(cfg, device)
-    launches0 = {k: m.LAUNCHES for k, m in KERNELS.items()}
+    rec = probes.ProbeRecorder(cfg.NX, cfg.NY, device)
+    own_group = False
+    if args.shard and staged is None:
+        own_group = not torch.distributed.is_initialized()
+        device = pmesh.init_distributed(device)
+        step, m, shard_fn = fused_sharded.make_fused_sharded_step_auto(
+            cfg, args.shard, device.type)
+        if rank0:
+            print(f"sharded over mesh {mesh_shape_of(m)}")
+        # each rank builds the initial state and keeps its block
+        state = shard_fn(plasma.init_state(cfg, device))
+        rollouts = {1: step}
+        rec = probes.ShardedProbeRecorder(cfg.NX, cfg.NY, device,
+                                          *sharding.block(
+                                              cfg, m,
+                                              torch.distributed.get_rank()))
+    else:
+        state = plasma.init_state(cfg, device)
+        # one rollout per window length: stride steps, and the remainder
+        rollouts = {k: plasma.make_rollout(cfg, k)
+                    for k in {stride, cfg.nsteps % stride} if k}
+    launches0 = launch_counts()
 
     timer = timing.StepTimer(cfg.NX, cfg.NY)
     timer.start()
@@ -198,30 +239,63 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     wall_ms = timer.wall_s * 1000
     if dmp is not None:
         dmp.close()
+    launches = {k: n - launches0[k] for k, n in launch_counts().items()}
+    if m is not None:
+        state = sharding.gather_state(state, m)
+        n_devices = torch.distributed.get_world_size()
+        if own_group:
+            torch.distributed.destroy_process_group()
+    else:
+        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
 
     series = rec.as_arrays()
-    rec.save_csv(os.path.join(args.out, "graphs"))
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    timing.append_timing_csv(
-        os.path.join(args.out, "simulation_time_plasma_details.csv"),
-        NX=cfg.NX, NY=cfg.NY, nsteps=cfg.nsteps, n_devices=n_devices,
-        poisson=cfg.poisson.value, bc=cfg.bc.value, wall_ms=wall_ms)
+    if rank0:
+        rec.save_csv(os.path.join(args.out, "graphs"))
+        timing.append_timing_csv(
+            os.path.join(args.out, "simulation_time_plasma_details.csv"),
+            NX=cfg.NX, NY=cfg.NY, nsteps=cfg.nsteps, n_devices=n_devices,
+            poisson=cfg.poisson.value, bc=cfg.bc.value, wall_ms=wall_ms)
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (state.f, state.g, state.Ex, state.Ey))
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
-    launches = {k: m.LAUNCHES - launches0[k] for k, m in KERNELS.items()}
+    summary = dict(NX=cfg.NX, NY=cfg.NY, steps=cfg.nsteps, wall_ms=wall_ms,
+                   mlups=timer.mlups, device=device_name,
+                   backend=cfg.backend, poisson=cfg.poisson.name,
+                   bc=cfg.bc.name, storage=cfg.storage, dtype=str(cfg.dtype),
+                   multistep=cfg.multistep, n_devices=n_devices,
+                   mesh=None if m is None else mesh_shape_of(m),
+                   launches=launches, finite=finite, probes=series,
+                   state=state)
+    if not rank0:
+        return summary
     print(f"Simulation ended: {cfg.NX}x{cfg.NY}, {cfg.nsteps} steps, "
           f"{wall_ms:.0f} ms ({timer.mlups:.2f} MLUPS) on {device_name}, "
           f"backend {cfg.backend}, poisson {cfg.poisson.name}, "
           f"bc {cfg.bc.name}, storage {cfg.storage}, {cfg.dtype}"
           + (f", multistep {cfg.multistep}" if cfg.multistep else "")
           + "; kernel "
-          f"launches " + ", ".join(f"{k} {n}" for k, n in launches.items()))
-    return dict(NX=cfg.NX, NY=cfg.NY, steps=cfg.nsteps, wall_ms=wall_ms,
-                mlups=timer.mlups, device=device_name, backend=cfg.backend,
-                poisson=cfg.poisson.name, bc=cfg.bc.name,
-                storage=cfg.storage, dtype=str(cfg.dtype),
-                multistep=cfg.multistep,
-                launches=launches, finite=finite, probes=series,
-                state=state)
+          f"launches " + ", ".join(f"{k} {n}" for k, n in launches.items())
+          + (f"; {n_devices} ranks, mesh {summary['mesh']}" if m is not None
+             else ""))
+    return summary
+
+
+def mesh_shape_of(m) -> dict:
+    return dict(zip(m.mesh_dim_names, m.shape))
+
+
+def _check_shard(args: argparse.Namespace, cfg: C.PlasmaConfig) -> None:
+    """Refuse what --shard cannot run, before any process group starts."""
+    if args.multistep:
+        raise SystemExit("--shard with --multistep: sharded windows are "
+                         "ROADMAP Queue 1 item 14 (e)")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != args.shard:
+        raise SystemExit(f"--shard {args.shard}: the world has {world} "
+                         f"ranks; run under torchrun --nproc-per-node "
+                         f"{args.shard}")
+    try:
+        fused_sharded.pick_mesh(cfg, args.shard)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(f"--shard: {e}")

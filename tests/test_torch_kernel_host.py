@@ -1,5 +1,6 @@
-"""The 3-D kernel's per-site code and the spectral solve's transforms,
-built for the CPU, against their plain versions.
+"""The 3-D kernel's per-site code, the halo kernels' per-site code and the
+spectral solve's transforms, built for the CPU, against their plain
+versions.
 
 lbm_tpu_torch/kernels/csrc/plasma3d_site.cuh holds all the arithmetic of
 csrc/fused_step3d.cu (moments, guards, collide, push-stream stores). With
@@ -12,6 +13,15 @@ bit, in f64, f32 and bf16 storage, with and without neutral-delta storage,
 on seeded warm states at 12x16x8, 16x16x1 and 17x13x2 (x, y, z). This holds
 the kernel's expression trees on every change here; chip_smoke.py phase 8a
 holds the CUDA build on the card.
+
+lbm_tpu_torch/kernels/csrc/halo_site.cuh holds the per-site work of the
+halo kernels (csrc/fused_step.cu's halo mode): which strip a site of the
+extended block reads, and which of its pushes land in the shard. Built the
+same way, a loop over the extended block's sites must equal
+kernels.fused_step.collide_stream_halo_reference (a y-shard) and
+collide_stream_halo2d_reference (a tile) bit for bit, at an 8x16 shard and
+a ragged 13x11 one that wraps around the grid's corner (chip_smoke.py phase
+10a holds the CUDA build).
 
 lbm_tpu_torch/kernels/csrc/fft_solve.cuh holds the three per-block programs
 of csrc/fft_solve.cu (row forward, column solve, row inverse), whose
@@ -31,10 +41,10 @@ import pytest
 import torch
 
 from lbm_tpu_torch.config import PlasmaConfig
-from lbm_tpu_torch.kernels import fft_tpu, fused_step3d
+from lbm_tpu_torch.kernels import fft_tpu, fused_step, fused_step3d
 from lbm_tpu_torch.kernels.build import CSRC
 from lbm_tpu_torch.kernels.fused_step import _MODES, host_params
-from lbm_tpu_torch.models import plasma3d
+from lbm_tpu_torch.models import plasma, plasma3d
 
 torch.set_num_threads(1)
 
@@ -84,6 +94,7 @@ typedef void* cudaStream_t;
 """,
 }
 _HOST_LOOP = r"""
+#include "halo_site.cuh"
 #include "plasma3d_site.cuh"
 
 template <typename S, typename T, bool DELTA, bool FAST>
@@ -116,6 +127,38 @@ extern "C" int host_collide_stream3d(int mode, int delta, const void* f,
   else RUN(__nv_bfloat16, float, true);
   return 0;
 }
+
+template <typename S, typename T, bool DELTA, bool FAST>
+void run_halo(const void* const* ptr, void* fo, void* go, void* rq,
+              const HaloGeom& gm, const HostParams& hp) {
+  const Params<T> p = cast_params<T>(hp);
+  const auto pop = [&](int k) { return static_cast<const S*>(ptr[k]); };
+  const auto fld = [&](int k) { return static_cast<const T*>(ptr[k]); };
+  const HaloIn<S, T> in{pop(0),  pop(1),  fld(2),  fld(3),  pop(4),
+                        pop(5),  fld(6),  fld(7),  pop(8),  pop(9),
+                        fld(10), fld(11), pop(12), pop(13), fld(14),
+                        fld(15), pop(16), pop(17), fld(18), fld(19)};
+  for (int64_t site = 0; site < halo_sites(gm); ++site)
+    collide_stream_halo_site<S, T, DELTA, FAST>(
+        in, static_cast<S*>(fo), static_cast<S*>(go), static_cast<T*>(rq),
+        gm, site, p);
+}
+
+#define RUN_HALO(S, T, FAST)                                           \
+  (delta ? run_halo<S, T, true, FAST>(ptr, fo, go, rq, gm, *hp)        \
+         : run_halo<S, T, false, FAST>(ptr, fo, go, rq, gm, *hp))
+
+extern "C" int host_collide_stream_halo(int mode, int delta,
+                                        const void* const* ptr, void* fo,
+                                        void* go, void* rq, const int* geom,
+                                        const HostParams* hp) {
+  const HaloGeom gm{geom[0], geom[1], geom[2], geom[3],
+                    geom[4], geom[5], geom[6]};
+  if (mode == 0) RUN_HALO(double, double, false);
+  else if (mode == 1) RUN_HALO(float, float, false);
+  else RUN_HALO(__nv_bfloat16, float, true);
+  return 0;
+}
 """
 
 
@@ -139,6 +182,8 @@ def host_kernel(tmp_path_factory):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     so.host_collide_stream3d.argtypes = [ci, ci, *[vp] * 8, ci, ci, ci, vp]
     so.host_collide_stream3d.restype = ci
+    so.host_collide_stream_halo.argtypes = [ci, ci, *[vp] * 6]
+    so.host_collide_stream_halo.restype = ci
     return so
 
 
@@ -187,6 +232,74 @@ def test_site_code_matches_plain_version_bitwise(host_kernel, shape):
             _MODES[(st.f.dtype, dtype)], int(delta),
             *(t.data_ptr() for t in (st.f, st.g, st.Ex, st.Ey, st.Ez)),
             *(t.data_ptr() for t in got), nz, ny, nx, ctypes.addressof(hp))
+        for name, a, b in zip(("f", "g", "rho_q"), got, want):
+            assert torch.equal(a, b), (
+                f"{storage} {dtype} delta={delta} {name}: "
+                f"{int((a != b).sum())} of {a.numel()} elements differ")
+
+
+def _seeded2d(cfg, seed):
+    """(f, g, Ex, Ey) after 2 plain steps, with a seeded relative
+    perturbation of ~1e-3 (numpy, float64), Ey additive."""
+    state = plasma.init_state(cfg, "cpu")
+    step = plasma.make_step(dataclasses.replace(cfg, backend="plain"))
+    for _ in range(2):
+        state = step(state)
+    rng = np.random.default_rng(seed)
+    e = 1e-3 * float(state.Ex.abs().max())
+
+    def perturb(t, additive=0.0):
+        a = t.double().numpy()
+        noise = rng.standard_normal(a.shape)
+        return torch.from_numpy(a * (1 + 1e-3 * noise)
+                                + additive * noise).to(t.dtype).contiguous()
+
+    return (perturb(state.f), perturb(state.g), perturb(state.Ex),
+            perturb(state.Ey, e))
+
+
+# (shard rows, shard columns, strip depth, corner extension) of a 24x32
+# grid (NY x NX): a y-shard or tile of 8x16, and a ragged 13x11 one
+_HALO_CUTS = [(slice(8, 16), slice(16, 32), 1, 1),
+              (slice(19, 32), slice(27, 38), 3, 2)]
+
+
+@pytest.mark.parametrize("cut", _HALO_CUTS, ids=["8x16", "13x11"])
+@pytest.mark.parametrize("tile", [False, True], ids=["y-shard", "tile"])
+def test_halo_site_code_matches_plain_version_bitwise(host_kernel, cut,
+                                                      tile):
+    """csrc/halo_site.cuh (the halo kernels' per-site code) against
+    collide_stream_halo_reference / _halo2d_reference, bit for bit, on a
+    y-shard (periodic in x) and a tile (x strips, corners), at an aligned
+    and a ragged shape; the 13x11 cut wraps around the grid's corner."""
+    rows, cols, depth, ext = cut
+    for dtype, storage, delta in [(torch.float64, "native", False),
+                                  (torch.float64, "native", True),
+                                  (torch.float32, "bf16", True)]:
+        cfg = PlasmaConfig(NX=32, NY=24, dtype=dtype, storage=storage,
+                           neutral_delta=delta)
+        u = cfg.units()
+        phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
+                    m_i=u.m_i, cs2=u.cs2, kb=u.kb,
+                    neutral_ref=u.rho_n_init if delta else 0.0)
+        full = _seeded2d(cfg, rows.stop * 100 + cols.stop)
+        args = fused_step.halo_inputs(full, rows, cols if tile else None,
+                                      depth, ext)
+        plain = (fused_step.collide_stream_halo2d_reference if tile
+                 else fused_step.collide_stream_halo_reference)
+        want = plain(*args, **phys)
+        f, g, ex = args[:3]
+        got = (torch.empty_like(f), torch.empty_like(g), torch.empty_like(ex))
+        ptrs = (ctypes.c_void_p * 20)(*(a.data_ptr() for a in args))
+        geom = (ctypes.c_int * 7)(
+            *ex.shape, args[6].shape[0], args[10].shape[0], ext if tile else 0,
+            args[14].shape[-1] if tile else 0,
+            args[18].shape[-1] if tile else 0)
+        hp = host_params(**phys)
+        host_kernel.host_collide_stream_halo(
+            _MODES[(f.dtype, dtype)], int(delta), ctypes.addressof(ptrs),
+            *(t.data_ptr() for t in got), ctypes.addressof(geom),
+            ctypes.addressof(hp))
         for name, a, b in zip(("f", "g", "rho_q"), got, want):
             assert torch.equal(a, b), (
                 f"{storage} {dtype} delta={delta} {name}: "

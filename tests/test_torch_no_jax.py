@@ -41,7 +41,8 @@ _SCRIPT = textwrap.dedent("""
         assert fh.read().count("stage = ") == 10
     for m in ("ops.d3", "models.plasma3d", "kernels.fused_step3d",
               "run_plasma3d", "kernels.fft_tpu", "models.plasma_staged",
-              "io.debug_dump"):
+              "io.debug_dump", "parallel.mesh", "parallel.sharding",
+              "parallel.poisson", "parallel.fused_sharded"):
         assert "lbm_tpu_torch." + m in sys.modules, m
     assert not any(n == "lbm_tpu" or n.startswith(("lbm_tpu.", "jax."))
                    for n in sys.modules), "JAX or lbm_tpu was imported"

@@ -1,0 +1,112 @@
+"""Rank bodies of tests/test_torch_sharded.py (not collected).
+
+    python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
+
+Each rank is its own process on the CPU: it joins a gloo group through a
+file:// store, runs SCENARIO, and rank 0 writes what the test compares to
+OUT_DIR/result.pt. It imports torch and lbm_tpu_torch only, never JAX.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from lbm_tpu_torch.config import PlasmaConfig, PoissonSolver  # noqa: E402
+from lbm_tpu_torch.models import plasma  # noqa: E402
+from lbm_tpu_torch.parallel import fused_sharded, mesh, sharding  # noqa: E402
+
+# (label, mesh shape, NY, NX, solver, dtype, storage, neutral_delta)
+STEP_CASES = [
+    ("y4_fft", (4, 1), 64, 32, "FFT", torch.float64, "native", False),
+    ("y4_none", (4, 1), 64, 32, "NONE", torch.float64, "native", False),
+    ("yx22_fft", (2, 2), 64, 64, "FFT", torch.float64, "native", False),
+    ("x4_fft", (1, 4), 64, 64, "FFT", torch.float64, "native", False),
+    ("y4_none_bf16", (4, 1), 64, 32, "NONE", torch.float32, "bf16", True),
+]
+STEPS = 3
+
+
+def case_config(ny: int, nx: int, solver: str, dtype, storage: str,
+                delta: bool) -> PlasmaConfig:
+    return PlasmaConfig(NX=nx, NY=ny, dtype=dtype, storage=storage,
+                        neutral_delta=delta,
+                        poisson=PoissonSolver[solver])
+
+
+def steps_on_meshes(out_dir: str) -> None:
+    """Every STEP_CASES case for STEPS steps through its sharded step
+    (the 1-D step on (n, 1), the 2-D step otherwise); rank 0 saves the
+    gathered states."""
+    results = {}
+    for label, shape, ny, nx, solver, dtype, storage, delta in STEP_CASES:
+        cfg = case_config(ny, nx, solver, dtype, storage, delta)
+        m = mesh.make_mesh(shape, "cpu")
+        make = (fused_sharded.make_fused_sharded_step if shape[1] == 1
+                else fused_sharded.make_fused_sharded_step_2d)
+        step = make(cfg, m)
+        state = sharding.shard_state(plasma.init_state(cfg, "cpu"), m)
+        for _ in range(STEPS):
+            state = step(state)
+        full = sharding.gather_state(state, m)
+        results[label] = {k: getattr(full, k) for k in
+                          ("f", "g", "Ex", "Ey", "phi")}
+    if dist.get_rank() == 0:
+        torch.save(results, os.path.join(out_dir, "result.pt"))
+
+
+def ring_and_cli(out_dir: str) -> None:
+    """On two ranks: ring_shift one step either way (the peer ahead is the
+    peer behind), the CLI's refusal of --shard 3, then the CLI with
+    --shard 2; rank 0 saves what each rank received and the probes."""
+    from lbm_tpu_torch import run_plasma
+
+    m = mesh.make_mesh((2, 1), "cpu")
+    r = dist.get_rank()
+    mine = [torch.full((3,), float(r)), torch.arange(4.0) + 10 * r,
+            torch.full((2, 2), r, dtype=torch.bfloat16)]
+    got = {step: mesh.ring_shift(mine, m, mesh.AXIS_Y, step)
+           for step in (1, -1)}
+    received = [None] * 2
+    dist.all_gather_object(received, {s: [t.float().tolist() for t in v]
+                                      for s, v in got.items()})
+    try:
+        run_plasma.main(["--device", "cpu", "--shard", "3", "--out",
+                         os.path.join(out_dir, "refused")])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    summary = run_plasma.main([
+        "--device", "cpu", "--shard", "2", "--nx", "32", "--ny", "32",
+        "--steps", "3", "--f64", "--poisson", "FFT", "--out",
+        os.path.join(out_dir, "cli")])
+    if r == 0:
+        torch.save({"received": received, "refused": refused,
+                    "probes": summary["probes"], "mesh": summary["mesh"],
+                    "launches": summary["launches"],
+                    "f": summary["state"].f}, os.path.join(out_dir,
+                                                           "result.pt"))
+
+
+SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli}
+
+
+def main(argv) -> None:
+    scenario, rank, world, init_file, out_dir = argv
+    torch.set_num_threads(1)
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
+    mesh.init_distributed("cpu", init_method=f"file://{init_file}")
+    try:
+        SCENARIOS[scenario](out_dir)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
