@@ -112,6 +112,24 @@ phase fails:
      and of the scale; 2048^2 FFT f32, 5 warm-up + 30 timed steps: ms/step,
      MLUPS, 35 launches of each halo kernel (counts reset just before),
      the sharded solve's ms beside the cuFFT route's.
+  11a. the cavity's y-shard kernels (collide_stream_cavity_halo, _halo_lean
+     on y-shards with strips; _multistep_gated on shards extended by K
+     ghost rows, K = 1, 4, 17 from step 8): seeded warm full grids of
+     2048^2 f32 and bf16 storage and 512^2 f64 cut into 2, 4 and 8
+     y-shards (1-row strips, 8-row on the 4-cut), and 129^2 f64 cut into
+     3 ragged 43-row shards; every shard bitwise equal to the single-device
+     kernels on the full grid at its rows, and to its plain version (the
+     window on its whole extended block); each kernel's device ms at 2048^2
+     (a world of one) and 512x2048 (a 4-card shard) beside its bound, its
+     plain version's and the single-device kernels' on the same input;
+  11b. the cavity CLI with --shard 1 on a one-rank NCCL group: 128^2, Re
+     100, 2,000 steps, stored, --lean and --multistep 100, each bitwise
+     equal to the single-device CLI's state, with 2,000 launches of the
+     halo kernel (20 of the window); --shard 1 --multistep 100 at Ghia's
+     129^2 for 10,000 steps within the Ghia gate;
+  11c. 2048^2 f32 stored, lean and multistep K = 32 sharded over a world
+     of one, beside the single-device rollouts: ms/step and MLUPS; the
+     state finite.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -120,7 +138,8 @@ Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
 reset before the run; 9b's step run for the spectral solve; 10b's 2048^2
-FFT runs for the halo kernels), its worst
+FFT runs for the halo kernels; 11b's 128^2 runs for the cavity's y-shard
+kernels), its worst
 error against its plain version, its time beside the plain version's,
 beside its bound and, where one PyTorch call computes the same function,
 beside that call's (library_ms), at the main path's shapes. The last line is {"ok": true, "device": {...}}; with --only, no
@@ -2079,12 +2098,349 @@ def phase_sharded_world_of_one():
     return launches
 
 
+# phase 11: the cavity's y-shard kernels. (label, NY, NX, dtype, storage,
+# shard counts); 2048^2 is the world-of-one size of the main path, 129^2
+# cut in 3 gives ragged 43-row shards
+CAVITY_SHARD_GRIDS = [
+    ("2048^2 f32", 2048, 2048, "float32", "native", (2, 4, 8)),
+    ("2048^2 bf16", 2048, 2048, "float32", "bf16", (2, 4, 8)),
+    ("512^2 f64", 512, 512, "float64", "native", (2, 4, 8)),
+    ("129^2 f64", 129, 129, "float64", "native", (3,)),
+]
+CAVITY_WINDOW_KS = (1, 4, 17)
+CAVITY_HALO = ("collide_stream_cavity_halo", "collide_stream_cavity_halo_lean",
+               "collide_stream_cavity_multistep_gated")
+
+
+def _cavity_seeded_on_card(cfg, device, seed):
+    """As _cavity_seeded, with the perturbation drawn on the card from a
+    seeded torch generator (a 2048^2 state holds 38M populations)."""
+    import torch
+    from lbm_tpu_torch.models import cavity
+
+    plain = dataclasses.replace(cfg, backend="plain", lean_macros=False,
+                                multistep=0)
+    state = cavity.make_rollout(plain, 12)(cavity.init_state(plain, device))
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def perturb(t, additive=0.0):
+        a = t.double()
+        noise = torch.randn(a.shape, generator=gen, device=device,
+                            dtype=torch.float64)
+        return (a * (1.0 + 1e-3 * noise) + additive * noise).to(cfg.dtype)
+
+    f = cavity.encode_f(cfg, perturb(cavity.decode_f(cfg, state.f)))
+    return state._replace(f=f.contiguous(), rho=perturb(state.rho),
+                          ux=perturb(state.ux, 1e-4),
+                          uy=perturb(state.uy, 1e-4))
+
+
+def _cavity_halo_bound_ms(name, f, rows_ext=None, k_steps=1):
+    """(least ms, "bytes" or "operations") of one launch on the shard f
+    (9, NY, NX): the stored step reads and writes f and the three macros
+    and reads the two strip rows (96 B/site in f32, 60 with bf16 f), the
+    lean step f alone (72 / 36); the window (rows_ext rows of the extended
+    block) f once, and 170 flop a site and step."""
+    _, ny, nx = f.shape
+    p = f.element_size()
+    c = 8 if p == 8 else 4
+    if name == "collide_stream_cavity_multistep_gated":
+        return _cavity_bound_ms("lean", rows_ext * nx, p, c, k_steps)
+    kind = "stored" if name == "collide_stream_cavity_halo" else "lean"
+    per_site = _cavity_bytes_per_site(kind, p, c)
+    strip = 2 * nx * (9 * p + (3 * c if kind == "stored" else 0))
+    t_bytes = (per_site * ny * nx + strip) / HBM_BYTES_PER_S * 1e3
+    rate = F64_FLOP_PER_S if c == 8 else F32_FLOP_PER_S
+    t_ops = CAVITY_FLOP * ny * nx / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_cavity_halo_kernels():
+    """Phase 11a: the three y-shard cavity kernels on every shard of cuts of
+    seeded warm full grids, bitwise against the single-device kernels on
+    the full grid and against their plain versions; times at 2048^2 (a
+    world of one) and 512x2048 (a 4-card shard). Returns ({kernel: worst
+    max|err| against its plain version}, {kernel: (ms, plain_ms, bound_ms,
+    bound_by, at)} at 2048^2 f32)."""
+    import torch
+    from lbm_tpu_torch.config import CavityConfig
+    from lbm_tpu_torch.kernels import fused_cavity as fc
+    from lbm_tpu_torch.models import cavity
+
+    print("== phase 11a: cavity y-shard kernels on cuts of a full grid, "
+          "bitwise vs the single-device kernels and their plain versions")
+    device = torch.device("cuda")
+    worst = dict.fromkeys(CAVITY_HALO, 0.0)
+    times = {}
+
+    def hold(where, got, single, plain):
+        """got bitwise equal to the single-device kernel's rows and to the
+        plain version; returns max|got - plain|."""
+        for k, (g, w, pl) in enumerate(zip(got, single, plain)):
+            require(torch.equal(_bits(g), _bits(w)), f"{where} output {k}: "
+                    f"not bitwise equal to the single-device kernel")
+            require(torch.equal(_bits(g), _bits(pl)), f"{where} output {k}: "
+                    f"not bitwise equal to the plain version")
+        return max(float((g.double() - pl.double()).abs().max())
+                   for g, pl in zip(got, plain))
+
+    for label, NY, NX, dtype, storage, cuts in CAVITY_SHARD_GRIDS:
+        cfg = CavityConfig(NX=NX, NY=NY, dtype=getattr(torch, dtype),
+                           storage=storage, backend="fused")
+        st = _cavity_seeded_on_card(cfg, device, seed=NY * 10000 + NX)
+        u, tau = cavity._lid_speed(cfg, 9), cfg.tau
+        macros = (st.rho, st.ux, st.uy)
+        kw = dict(tau=tau, u_lid=cfg.u_lid, sigma=cfg.sigma)
+        full = {"collide_stream_cavity_halo": fc.collide_stream_cavity(
+                    st.f, *macros, u, tau=tau),
+                "collide_stream_cavity_halo_lean": [
+                    fc.collide_stream_cavity_lean(st.f, u, tau=tau)]}
+        windows = {k: fc.collide_stream_cavity_multistep(st.f, 8, k_steps=k,
+                                                         **kw)
+                   for k in CAVITY_WINDOW_KS}
+        n_holds = 0
+        for n in cuts:
+            rows = NY // n
+            depth = 8 if n == 4 else 1    # JAX's 8-row strips on one cut
+            for r in range(n):
+                ys = slice(r * rows, (r + 1) * rows)
+                where = f"{label} cut {n} shard {r}"
+                for name, mac in (("collide_stream_cavity_halo", macros),
+                                  ("collide_stream_cavity_halo_lean", None)):
+                    args, walls = fc.halo_inputs(st.f, mac, ys, depth)
+                    run = getattr(fc, name)
+                    plain = getattr(fc, name + "_reference")
+                    got, ref = run(*args, u, *walls, tau=tau), plain(
+                        *args, u, *walls, tau=tau)
+                    if mac is None:
+                        got, ref = [got], [ref]
+                    single = [t[..., ys, :] for t in full[name]]
+                    worst[name] = max(worst[name], hold(
+                        f"{where} {name}", got, single, ref))
+                    n_holds += 1
+                for k in CAVITY_WINDOW_KS:
+                    block, wall_rows = fc.window_inputs(st.f, ys, k)
+                    got = fc.collide_stream_cavity_multistep_gated(
+                        block, 8, wall_rows, k_steps=k, **kw)
+                    ref = fc.collide_stream_cavity_multistep_gated_reference(
+                        block, 8, wall_rows, k_steps=k, **kw)
+                    name = "collide_stream_cavity_multistep_gated"
+                    require(torch.equal(_bits(got), _bits(ref)),
+                            f"{where} window K={k}: the extended block not "
+                            f"bitwise equal to the plain version")
+                    require(torch.equal(_bits(got[:, k:k + rows]),
+                                        _bits(windows[k][:, ys])),
+                            f"{where} window K={k}: the shard not bitwise "
+                            f"equal to the single-device window")
+                    n_holds += 1
+            torch.cuda.synchronize()
+        print(f"{label:>12}: {n_holds} holds on cuts {cuts} (stored, lean, "
+              f"window K={'/'.join(map(str, CAVITY_WINDOW_KS))} from step "
+              f"8), every shard bitwise equal to the single-device kernels "
+              f"and to the plain versions")
+        if NY == 2048:
+            stored_ms = _device_ms(lambda: fc.collide_stream_cavity(
+                st.f, *macros, u, tau=tau), 50)
+            lean_ms = _device_ms(lambda: fc.collide_stream_cavity_lean(
+                st.f, u, tau=tau), 50)
+            out = [f"collide_stream_cavity {stored_ms:.4f} ms, _lean "
+                   f"{lean_ms:.4f} ms"]
+            if storage == "native":
+                window_ms = _device_ms(
+                    lambda: fc.collide_stream_cavity_multistep(
+                        st.f, 8, k_steps=32, **kw), 5)
+                out[0] += f", _multistep K=32 {window_ms:.4f} ms"
+            for ys in (slice(0, NY), slice(NY // 4, NY // 2)):
+                shape = f"{ys.stop - ys.start}x{NX}"
+                for name, mac in (("collide_stream_cavity_halo", macros),
+                                  ("collide_stream_cavity_halo_lean", None),
+                                  ("collide_stream_cavity_multistep_gated",
+                                   None)):
+                    if name.endswith("gated"):
+                        if storage == "bf16":
+                            continue
+                        k = 32
+                        block, wall_rows = fc.window_inputs(st.f, ys, k)
+                        args = (block, 8, wall_rows)
+                        call_kw = dict(k_steps=k, **kw)
+                        bound, bound_by = _cavity_halo_bound_ms(
+                            name, block, block.shape[1], k)
+                        reps, plain_reps = 5, 1
+                    else:
+                        a, walls = fc.halo_inputs(st.f, mac, ys)
+                        args, call_kw = (*a, u, *walls), dict(tau=tau)
+                        bound, bound_by = _cavity_halo_bound_ms(name, a[0])
+                        reps, plain_reps = 50, 3
+                    run = getattr(fc, name)
+                    plain = getattr(fc, name + "_reference")
+                    ms = _device_ms(lambda: run(*args, **call_kw), reps)
+                    plain_ms = _time_ms(lambda: plain(*args, **call_kw),
+                                        plain_reps)
+                    tag = " K=32" if name.endswith("gated") else ""
+                    out.append(f"{name} {shape}{tag} {ms:.4f} ms (bound "
+                               f"{bound:.4f} by {bound_by}, "
+                               f"{100 * bound / ms:.1f}%; plain "
+                               f"{plain_ms:.4f})")
+                    if storage == "native" and ys.stop == NY:
+                        times[name] = (ms, plain_ms, bound, bound_by,
+                                       f"{shape}{tag} f32, a world of one")
+                    del args
+            print(f"{'':>12} timings: " + "; ".join(out))
+        del st, macros, full, windows
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def _cavity_group():
+    """A one-rank NCCL group for phase 11 (torchrun's environment is not
+    needed: the CLI keeps a group that exists)."""
+    import shutil
+
+    from lbm_tpu_torch.parallel import mesh as pmesh
+    store = os.path.join(OUT, "dist_store_cavity")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    return pmesh.init_distributed("cuda", init_method=f"file://{store}/store",
+                                  rank=0, world_size=1)
+
+
+def phase_cavity_sharded_cli():
+    """Phase 11b: the cavity CLI with --shard 1 on a one-rank NCCL group,
+    128^2 Re 100, 2,000 steps, stored, lean and --multistep 100, each
+    bitwise equal to the single-device CLI's state with one halo launch a
+    step (a window launch per 100 steps); then --shard 1 --multistep 100 at
+    Ghia's 129^2 for 10,000 steps within the Ghia gate. Returns the halo
+    kernels' launches in the 128^2 runs (counts set to 0 just before each
+    run, read just after)."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch import run_cavity
+    from lbm_tpu_torch.kernels import fused_cavity
+
+    print("== phase 11b: the cavity CLI with --shard 1 on a one-rank NCCL "
+          "group")
+    _cavity_group()
+    launches = {}
+    try:
+        steps = 2000
+        for label, flags, kernel, want in (
+                ("stored", [], "collide_stream_cavity_halo", steps),
+                ("lean", ["--lean"], "collide_stream_cavity_halo_lean",
+                 steps),
+                ("multistep 100", ["--multistep", "100"],
+                 "collide_stream_cavity_multistep_gated", steps // 100)):
+            base = ["--nx", "128", "--steps", str(steps), "--re", "100",
+                    "--u-lid", "0.1", "--device", "cuda"] + flags
+            tag = label.replace(" ", "_")
+            single = run_cavity.main(base + ["--out", os.path.join(
+                OUT, "cavity128_" + tag)])
+            _reset_cavity_launches()
+            s = run_cavity.main(base + ["--shard", "1", "--out", os.path.join(
+                OUT, "cavity128_shard_" + tag)])
+            counts = dict(fused_cavity.LAUNCHES)
+            require(counts == {k: want if k == kernel else 0 for k in counts},
+                    f"--shard 1 {label}: launches {counts}, want {want} of "
+                    f"{kernel}")
+            require(s["launches"] == counts and s["n_devices"] == 1,
+                    f"--shard 1 {label}: the CLI counted {s['launches']} on "
+                    f"{s['n_devices']} ranks")
+            require(s["finite"], f"--shard 1 {label}: state not finite")
+            for k in ("f", "rho", "ux", "uy"):
+                require(torch.equal(_bits(getattr(s["state"], k)),
+                                    _bits(getattr(single["state"], k))),
+                        f"--shard 1 {label}: {k} not bitwise equal to the "
+                        f"single-device CLI's")
+            launches[kernel] = counts[kernel]
+            print(f"128^2 {label:>13}, {steps} steps: bitwise equal to the "
+                  f"single-device CLI; {counts[kernel]} launches of {kernel}; "
+                  f"{s['wall_ms']:.1f} ms ({s['mlups']:.1f} MLUPS), single-"
+                  f"device {single['wall_ms']:.1f} ms")
+        _reset_cavity_launches()
+        s = run_cavity.main(["--nx", "129", "--steps", "10000", "--re",
+                             "100", "--u-lid", "0.1", "--device", "cuda",
+                             "--shard", "1", "--multistep", "100", "--out",
+                             os.path.join(OUT, "cavity_ghia_shard")])
+        g = s["ghia"]
+        for key, gate in GHIA_GATE.items():
+            require(g[key] < gate, f"--shard 1 --multistep 100 Ghia: {key} "
+                    f"{g[key]:.4f} >= {gate}")
+        n = fused_cavity.LAUNCHES["collide_stream_cavity_multistep_gated"]
+        require(n == 100 and s["finite"], f"Ghia --shard 1: {n} window "
+                f"launches, finite {s['finite']}")
+        print(f"129^2 Ghia, --shard 1 --multistep 100, 10,000 steps: u max "
+              f"{g['u_max']:.4f} rms {g['u_rms']:.4f}, v max {g['v_max']:.4f}"
+              f" rms {g['v_rms']:.4f}; mass drift {s['mass_drift']:.3e}; "
+              f"{n} launches; {s['wall_ms']:.1f} ms ({s['mlups']:.1f} MLUPS)")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_cavity_sharded_real_size():
+    """Phase 11c: 2048^2 f32 stored, lean and multistep K = 32 sharded over
+    a world of one, beside the single-device rollouts in the same call:
+    ms/step and MLUPS (CUDA events over a window after warm-up); the state
+    stays finite."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch.config import CavityConfig
+    from lbm_tpu_torch.models import cavity
+    from lbm_tpu_torch.parallel import fused_sharded, sharding
+    from lbm_tpu_torch.parallel import mesh as pmesh
+
+    print("== phase 11c: 2048^2 f32 cavity sharded over a world of one "
+          "(CUDA events)")
+    device = _cavity_group()
+    try:
+        m = pmesh.make_mesh((1, 1), "cuda")
+        n = 2048
+        for label, lean, K, warm, steps in (
+                ("stored", False, 0, 20, 200), ("lean", True, 0, 20, 200),
+                ("multistep 32", False, 32, 32, 512)):
+            cfg = CavityConfig(NX=n, NY=n, dtype=torch.float32,
+                               backend="fused", lean_macros=lean,
+                               multistep=K)
+            if K:
+                make = fused_sharded.make_fused_sharded_cavity_multistep_rollout
+            else:
+                make = fused_sharded.make_fused_sharded_cavity_rollout
+            line = []
+            for side, roll_of in (
+                    ("single-device", lambda k: cavity.make_rollout(cfg, k)),
+                    ("sharded", lambda k: make(cfg, m, k))):
+                state = cavity.init_state(cfg, device)
+                if side == "sharded":
+                    state = sharding.shard_cavity_state(state, m)
+                state = roll_of(warm)(state)
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                state = roll_of(steps)(state)
+                t1.record()
+                torch.cuda.synchronize()
+                ms = t0.elapsed_time(t1) / steps
+                require(all(bool(torch.isfinite(t.float()).all())
+                            for t in (state.f, state.rho, state.ux,
+                                      state.uy)),
+                        f"2048^2 {label} {side}: state not finite")
+                line.append(f"{side} {ms:.4f} ms/step "
+                            f"({n * n / (ms * 1e-3) / 1e6:.1f} MLUPS)")
+                del state
+            print(f"2048^2 f32 {label:>12} ({warm} + {steps} steps): "
+                  + "; ".join(line))
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
-    ap.add_argument("--only", default=None, metavar="3,4,5,6,7,8,9,10",
+    ap.add_argument("--only", default=None,
+                    metavar="3,4,5,6,7,8,9,10,11",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -2140,6 +2496,10 @@ def main(argv=None) -> int:
     if run("10"):
         halo_err, halo_times = timed(phase_halo_kernels)
         launches.update(timed(phase_sharded_world_of_one))
+    if run("11"):
+        cavity_halo_err, cavity_halo_times = timed(phase_cavity_halo_kernels)
+        launches.update(timed(phase_cavity_sharded_cli))
+        timed(phase_cavity_sharded_real_size)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -2205,6 +2565,17 @@ def main(argv=None) -> int:
             "replaces": f"lbm_tpu/kernels/fused_step.py:{line}",
             "launches": launches[name], "max_abs_err": halo_err[name],
             "max_abs_err_at": "phase 10a, 512x512 f64, every cut",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "ms_at": at})
+    for name, line in (("collide_stream_cavity_halo", 512),
+                       ("collide_stream_cavity_halo_lean", 373),
+                       ("collide_stream_cavity_multistep_gated", 821)):
+        ms, plain_ms, bound, bound_by, at = cavity_halo_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + "fused_cavity.cu",
+            "replaces": f"lbm_tpu/kernels/fused_cavity.py:{line}",
+            "launches": launches[name], "max_abs_err": cavity_halo_err[name],
+            "max_abs_err_at": "phase 11a, every shard of every cut",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None, "ms_at": at})
     print(card_line())

@@ -123,16 +123,14 @@ SIGNATURES = {
     # out, err_ring, sweeps, NY, NX, stream
     "lbm_solve_iter": [_CI, _CI, _CI, _CD, _CI, _CD, *[_VP] * 6, _CI, _CI,
                        _VP],
-    # mode, f, rho, ux, uy, f_out, rho_out, ux_out, uy_out, u_lid_dyn, tau,
-    # NY, NX, stream
-    "lbm_cavity_collide_stream": [_CI, *[_VP] * 8, _CD, _CD, _CI, _CI, _VP],
-    # mode, f, f_out, u_lid_dyn, tau, NY, NX, stream
-    "lbm_cavity_collide_stream_lean": [_CI, _VP, _VP, _CD, _CD, _CI, _CI,
-                                       _VP],
+    # mode, lean, f, rho, ux, uy, f_up, mac_up, f_dn, mac_dn, f_out, rho_out,
+    # ux_out, uy_out, u_lid_dyn, tau, NY, NX, du, dd, b_row, l_row, stream
+    "lbm_cavity_collide_stream": [_CI, _CI, *[_VP] * 12, _CD, _CD,
+                                  *[_CI] * 6, _VP],
     # mode, f, work_a, work_b, f_out, t0, k_steps, u_lid, sigma, tau, NY, NX,
-    # stream
-    "lbm_cavity_multistep": [_CI, *[_VP] * 4, _CI, _CI, _CD, _CD, _CD, _CI,
-                             _CI, _VP],
+    # b_row, l_row, stream
+    "lbm_cavity_multistep": [_CI, *[_VP] * 4, _CI, _CI, _CD, _CD, _CD,
+                             *[_CI] * 4, _VP],
     # mode, delta, solve_kind, window (MultistepHost*), params, stream
     "lbm_plasma_multistep": [_CI, _CI, _CI, _VP, _VP, _VP],
     "lbm_multistep_host_size": [],

@@ -1,6 +1,7 @@
 """Push streaming with periodic wrap or bounce-back walls, and the cavity's
 pull streaming (counterpart of lbm_tpu/ops/stream.py: stream_periodic, the
-bounce-back fixups and their flat-gather test oracle, stream_cavity).
+bounce-back fixups and their flat-gather test oracle, stream_cavity; and
+stream_cavity_gated, the gated step_planes of the cavity window kernel).
 
 Bounce-back is applied as the periodic push plus edge-row and edge-column
 fixups (src/streaming.cpp:70-105). Unlike the JAX functions, which return
@@ -207,9 +208,22 @@ def stream_cavity(f: torch.Tensor, u_lid_dyn: float) -> torch.Tensor:
         order), so the lid wins the two top corners.
 
     f: (Q, NY, NX) post-collision populations, y = 0 the bottom wall and
-    y = NY-1 the lid. Every wall source is read from f, which is never
-    written: the rolls build a fresh tensor, and only that one is updated
-    in place.
+    y = NY-1 the lid: stream_cavity_gated with the walls at the grid's
+    edge rows, which overwrite every direction the roll wraps.
+    """
+    return stream_cavity_gated(f, u_lid_dyn, 0, f.shape[-2] - 1)
+
+
+def stream_cavity_gated(f: torch.Tensor, u_lid_dyn: float, b_row: int,
+                        l_row: int) -> torch.Tensor:
+    """stream_cavity with the bottom wall at row b_row and the lid at row
+    l_row (-1: none), periodic in y elsewhere: the step_planes of
+    lbm_tpu/kernels/fused_cavity._make_multistep_kernel (gated=True), which
+    runs on a shard extended by ghost rows. The rolls wrap in y within the
+    block, the side walls span every row, then the bottom wall and the lid
+    are written in that order. Every wall source is read from f, which is
+    never written: the rolls build a fresh tensor, and only that one is
+    updated in place.
     """
     fn = torch.stack([torch.roll(f[i], shifts=(int(CY[i]), int(CX[i])),
                                  dims=(0, 1)) for i in range(Q)])
@@ -221,15 +235,15 @@ def stream_cavity(f: torch.Tensor, u_lid_dyn: float) -> torch.Tensor:
     fn[3, :, -1] = f[1, :, -1]
     fn[7, :, -1] = f[5, :, -1]
     fn[6, :, -1] = f[8, :, -1]
-    # bottom wall y=0
-    fn[2, 0, :] = f[4, 0, :]
-    fn[5, 0, :] = f[7, 0, :]
-    fn[6, 0, :] = f[8, 0, :]
-
-    # top moving lid y=NY-1 (written last: wins the two top corners)
-    rho_top = sum_dirs([f[i, -1, :] for i in range(Q)])
-    d5, d6 = lid_deltas(rho_top, u_lid_dyn)
-    fn[4, -1, :] = f[2, -1, :]          # d2 = 0 since cx[2] = 0
-    fn[7, -1, :] = f[5, -1, :] + d5
-    fn[8, -1, :] = f[6, -1, :] + d6
+    if b_row >= 0:
+        fn[2, b_row, :] = f[4, b_row, :]
+        fn[5, b_row, :] = f[7, b_row, :]
+        fn[6, b_row, :] = f[8, b_row, :]
+    if l_row >= 0:
+        # the moving lid, written last: wins the two top corners
+        rho_top = sum_dirs([f[i, l_row, :] for i in range(Q)])
+        d5, d6 = lid_deltas(rho_top, u_lid_dyn)
+        fn[4, l_row, :] = f[2, l_row, :]      # d2 = 0 since cx[2] = 0
+        fn[7, l_row, :] = f[5, l_row, :] + d5
+        fn[8, l_row, :] = f[6, l_row, :] + d6
     return fn

@@ -1,6 +1,7 @@
-"""The 2-D plasma step sharded over ranks: ring halo exchange + the halo
-collide+stream kernels + the sharded Poisson solve (counterpart of the 2-D
-plasma part of lbm_tpu/parallel/fused_sharded.py).
+"""The 2-D plasma step and the lid-driven cavity sharded over ranks: ring
+halo exchange + the halo kernels (+ the plasma's sharded Poisson solve)
+(counterpart of the 2-D plasma and cavity parts of
+lbm_tpu/parallel/fused_sharded.py).
 
 Each rank holds one block of the lattice (parallel/sharding) and runs, each
 step:
@@ -20,6 +21,17 @@ make_fused_sharded_step_auto picks the mesh as the JAX package does
 (pick_mesh), without its TPU memory test, and raises NotImplementedError
 where the JAX package falls back to its GSPMD jnp step (ROADMAP Queue 1
 item 17).
+
+The cavity runs on a (dy, 1) mesh of y-shards. Its per-step paths
+(make_fused_sharded_cavity_step, _rollout) exchange 1-row strips of f, and
+in stored mode of the macros, and run collide_stream_cavity_halo or
+_halo_lean; the window path (make_fused_sharded_cavity_multistep_rollout)
+exchanges K-row slabs of f once a window and runs
+collide_stream_cavity_multistep_gated on the extended shard. The wall shards
+apply the bottom wall and the lid; the strips the ring wraps onto them are
+ignored there. The JAX package's VMEM tests (_pick_band,
+check_vmem_multistep) measure the TPU's scratch memory and are dropped: the
+CUDA kernels take any shard that fits the card.
 """
 from __future__ import annotations
 
@@ -28,8 +40,13 @@ from typing import Callable, Tuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..config import BC, PlasmaConfig, PoissonSolver
+from ..config import BC, CavityConfig, PlasmaConfig, PoissonSolver
+from ..kernels.fused_cavity import (collide_stream_cavity_halo,
+                                    collide_stream_cavity_halo_lean,
+                                    collide_stream_cavity_multistep_gated)
 from ..kernels.fused_step import collide_stream_halo, collide_stream_halo2d
+from ..models import cavity
+from ..models.cavity import CavityState
 from ..models.plasma import PlasmaState, check_supported
 from .mesh import AXIS_X, AXIS_Y, make_mesh, mesh_shape, ring_shift
 from .poisson import solve_poisson_sharded
@@ -171,3 +188,154 @@ def make_fused_sharded_step_auto(cfg: PlasmaConfig, n: int,
     make = (make_fused_sharded_step if shape[1] == 1
             else make_fused_sharded_step_2d)
     return make(cfg, mesh), mesh, lambda state: shard_state(state, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the lid-driven cavity
+# ---------------------------------------------------------------------------
+
+def _cavity_ranks(mesh: DeviceMesh, what: str) -> int:
+    """The dy size of a (dy, 1) mesh; a nontrivial dx axis is refused."""
+    ny, nx = mesh_shape(mesh)
+    if nx != 1:
+        raise ValueError(f"{what} is 1-D (dy) only; got nontrivial axes "
+                         f"['{AXIS_X}']")
+    return ny
+
+
+def _cavity_walls(mesh: DeviceMesh, n: int) -> Tuple[bool, bool]:
+    """(bottom, top): this rank's shard holds y = 0, holds the lid."""
+    idx = mesh.get_local_rank(AXIS_Y)
+    return idx == 0, idx == n - 1
+
+
+def _cavity_shard_step(cfg: CavityConfig, mesh: DeviceMesh) -> Callable:
+    """The refusals of the per-step paths, then one shard step: lean
+    f -> f, stored (f, rho, ux, uy) -> (f, rho, ux, uy), at a host lid
+    speed. Each step sends the shard's edge rows to its dy neighbours
+    (ring): 9 planes a strip in lean mode, 12 in stored mode."""
+    n = _cavity_ranks(mesh, "fused sharded cavity step")
+    if cfg.NY % (8 * n):
+        raise ValueError(f"NY={cfg.NY} must be divisible by 8*{n} (the Ghia "
+                         f"129^2 default is indivisible: use a multiple-of-8 "
+                         f"grid; the GSPMD cavity step is {GSPMD_ITEM})")
+    cavity._check_supported(cfg)
+    tau = cfg.tau
+    bottom, top = _cavity_walls(mesh, n)
+
+    def exchange(f, macros=()):
+        """The rows below the shard (the previous rank's last row) and
+        above it (the next rank's first row): f's, then the macros'
+        stacked (3, 1, NX)."""
+        up = [f[:, -1:]] + ([torch.stack([m[-1:] for m in macros])]
+                            if macros else [])
+        dn = [f[:, :1]] + ([torch.stack([m[:1] for m in macros])]
+                           if macros else [])
+        return (ring_shift(up, mesh, AXIS_Y, 1),
+                ring_shift(dn, mesh, AXIS_Y, -1))
+
+    if cfg.lean_macros:
+        def local_lean(f, u):
+            (f_up,), (f_dn,) = exchange(f)
+            return collide_stream_cavity_halo_lean(f, f_up, f_dn, u, bottom,
+                                                   top, tau=tau)
+        return local_lean
+
+    def local(f, rho, ux, uy, u):
+        (f_up, m_up), (f_dn, m_dn) = exchange(f, (rho, ux, uy))
+        return collide_stream_cavity_halo(f, rho, ux, uy, f_up, m_up, f_dn,
+                                          m_dn, u, bottom, top, tau=tau)
+    return local
+
+
+def make_fused_sharded_cavity_step(cfg: CavityConfig, mesh: DeviceMesh
+                                   ) -> Callable[[CavityState], CavityState]:
+    """The sharded cavity step on a (dy, 1) mesh: NY divisible by 8 *
+    ranks (the JAX package's rule; the CUDA kernels take any NY). Each rank
+    holds its rows (parallel/sharding.shard_cavity_state); the step counter
+    is a host int on every rank. cfg.lean_macros runs the populations-only
+    halo kernel and recomputes the macros after it, as the JAX step does;
+    long lean marches should take make_fused_sharded_cavity_rollout, which
+    carries f alone."""
+    local = _cavity_shard_step(cfg, mesh)
+    lean = cfg.lean_macros
+
+    def step(state: CavityState) -> CavityState:
+        u = cavity._lid_speed(cfg, state.step)
+        if lean:
+            f = local(state.f, u)
+            return CavityState(f, *cavity.macros_of(cfg, f), state.step + 1)
+        return CavityState(*local(state.f, state.rho, state.ux, state.uy, u),
+                           state.step + 1)
+
+    return step
+
+
+def make_fused_sharded_cavity_rollout(cfg: CavityConfig, mesh: DeviceMesh,
+                                      n: int
+                                      ) -> Callable[[CavityState], CavityState]:
+    """n sharded cavity steps. In lean mode the loop carries (f, step) only
+    and the macros are computed once at the end, on each shard; stored mode
+    carries the whole state."""
+    local = _cavity_shard_step(cfg, mesh)
+
+    def rollout(state: CavityState) -> CavityState:
+        if cfg.lean_macros:
+            f = state.f
+            for t in range(state.step, state.step + n):
+                f = local(f, cavity._lid_speed(cfg, t))
+            return CavityState(f, *cavity.macros_of(cfg, f), state.step + n)
+        out = (state.f, state.rho, state.ux, state.uy)
+        for t in range(state.step, state.step + n):
+            out = local(*out, cavity._lid_speed(cfg, t))
+        return CavityState(*out, state.step + n)
+
+    return rollout
+
+
+def make_fused_sharded_cavity_multistep_rollout(
+        cfg: CavityConfig, mesh: DeviceMesh, n: int
+) -> Callable[[CavityState], CavityState]:
+    """n sharded cavity steps in windows of K = cfg.multistep: floor(n / K)
+    windows of K steps and one of the remainder. Each window sends the
+    shard's K edge rows to its dy neighbours (ring), concatenates
+    [below, shard, above] and runs the gated window kernel on the extended
+    (rows + 2K, NX) block with the bottom wall at row K on the first rank
+    and the lid at row K + rows - 1 on the last (-1, none, elsewhere); the
+    shard is the block's rows [K, K + rows). Garbage that the ring wraps
+    onto the wall shards never crosses the wall rows, and the periodic
+    wrap's error travels one row a step, so it stays in the ghost rows.
+    A remainder window runs on K-deep slabs too. The loop carries (f,
+    step); the macros are computed once at the end. NY must divide by the
+    ranks (any alignment) and K must not exceed a shard's rows: one ring
+    hop brings no deeper ghost."""
+    ranks = _cavity_ranks(mesh, "sharded cavity multistep")
+    K = int(cfg.multistep)
+    if K <= 0:
+        raise ValueError("sharded cavity multistep needs cfg.multistep > 0")
+    if cfg.NY % ranks:
+        raise ValueError(f"NY={cfg.NY} must be divisible by {ranks}")
+    rows = cfg.NY // ranks
+    if K > rows:
+        raise ValueError(f"multistep K={K} exceeds rows/shard={rows}; the "
+                         f"one-hop ghost exchange needs K <= rows (smaller K "
+                         f"or fewer devices)")
+    cavity._check_supported(cfg)
+    bottom, top = _cavity_walls(mesh, ranks)
+    wall_rows = (K if bottom else -1, K + rows - 1 if top else -1)
+    windows = [K] * (n // K) + ([n % K] if n % K else [])
+    kw = dict(tau=cfg.tau, u_lid=cfg.u_lid, sigma=cfg.sigma)
+
+    def rollout(state: CavityState) -> CavityState:
+        f, t = state.f, state.step
+        for k in windows:
+            (below,) = ring_shift([f[:, -K:]], mesh, AXIS_Y, 1)
+            (above,) = ring_shift([f[:, :K]], mesh, AXIS_Y, -1)
+            block = torch.cat([below, f, above], dim=1)
+            f = collide_stream_cavity_multistep_gated(
+                block, t, wall_rows, k_steps=k, **kw)[:, K:K + rows]
+            f = f.contiguous()
+            t += k
+        return CavityState(f, *cavity.macros_of(cfg, f), t)
+
+    return rollout

@@ -43,9 +43,6 @@ def init_distributed(device, init_method: Optional[str] = None,
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device {device}: want cuda or cpu")
-    rank = int(os.environ["RANK"]) if rank is None else rank
-    world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
-                  else world_size)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was asked for, but none is "
@@ -53,6 +50,9 @@ def init_distributed(device, init_method: Optional[str] = None,
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
     if not dist.is_initialized():
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
+                      else world_size)
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
             init_method=init_method or "env://", rank=rank,

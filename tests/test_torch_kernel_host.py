@@ -1,5 +1,5 @@
-"""The 3-D kernel's per-site code, the halo kernels' per-site code and the
-spectral solve's transforms, built for the CPU, against their plain
+"""The 3-D kernel's per-site code, the halo kernels', the cavity kernels' and
+the spectral solve's transforms, built for the CPU, against their plain
 versions.
 
 lbm_tpu_torch/kernels/csrc/plasma3d_site.cuh holds all the arithmetic of
@@ -23,6 +23,16 @@ collide_stream_halo2d_reference (a tile) bit for bit, at an 8x16 shard and
 a ragged 13x11 one that wraps around the grid's corner (chip_smoke.py phase
 10a holds the CUDA build).
 
+lbm_tpu_torch/kernels/csrc/cavity_site.cuh holds the per-site work of the
+cavity kernels (csrc/fused_cavity.cu): where a halo row comes from (a
+strip, the block's other end, or nowhere behind a wall), the collision, the
+pull with its walls and lid, and the window's lid ramp. A loop over the
+block's sites, built the same way, must equal the plain versions of the
+stored and lean halo steps and of the gated window bit for bit on ragged
+shards that hold the bottom wall, neither wall and the lid, and those of the
+single-device steps on the whole grid (chip_smoke.py phases 6a and 11a hold
+the CUDA build).
+
 lbm_tpu_torch/kernels/csrc/fft_solve.cuh holds the three per-block programs
 of csrc/fft_solve.cu (row forward, column solve, row inverse), whose
 block-stride loops become serial loops on the host; a loop over the blocks
@@ -40,11 +50,12 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.config import PlasmaConfig
-from lbm_tpu_torch.kernels import fft_tpu, fused_step, fused_step3d
+from lbm_tpu_torch.config import CavityConfig, PlasmaConfig
+from lbm_tpu_torch.kernels import (fft_tpu, fused_cavity, fused_step,
+                                   fused_step3d)
 from lbm_tpu_torch.kernels.build import CSRC
 from lbm_tpu_torch.kernels.fused_step import _MODES, host_params
-from lbm_tpu_torch.models import plasma, plasma3d
+from lbm_tpu_torch.models import cavity, plasma, plasma3d
 
 torch.set_num_threads(1)
 
@@ -162,23 +173,29 @@ extern "C" int host_collide_stream_halo(int mode, int delta,
 """
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def _build_host(tmp_path_factory, name, source, stubs):
+    """Build `source` with the host's C++ compiler against csrc/ (and the
+    header stand-ins) into a library; skip without a compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the site code with")
-    d = tmp_path_factory.mktemp("host_kernel")
-    for name, text in _STUBS.items():
-        (d / name).write_text(text)
-    src, lib = d / "host_loop.cpp", d / "libhost3d.so"
-    src.write_text(_HOST_LOOP)
+    d = tmp_path_factory.mktemp(name)
+    for header, text in stubs.items():
+        (d / header).write_text(text)
+    src, lib = d / f"{name}.cpp", d / f"lib{name}.so"
+    src.write_text(source)
     r = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
                         "-fno-fast-math", "-fPIC", "-shared",
                         "-Wno-unknown-pragmas", f"-I{d}", f"-I{CSRC}",
                         str(src), "-o", str(lib)],
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    so = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    so = _build_host(tmp_path_factory, "host_loop", _HOST_LOOP, _STUBS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     so.host_collide_stream3d.argtypes = [ci, ci, *[vp] * 8, ci, ci, ci, vp]
     so.host_collide_stream3d.restype = ci
@@ -306,6 +323,208 @@ def test_halo_site_code_matches_plain_version_bitwise(host_kernel, cut,
                 f"{int((a != b).sum())} of {a.numel()} elements differ")
 
 
+_CAVITY_HOST = r"""
+#include <type_traits>
+#include <vector>
+
+#include "cavity_site.cuh"
+
+using namespace cavity;
+
+// one step of the block: what the tiles of cavity_step_kernel do, site by
+// site: collide the block and its y-halo rows, then pull each site
+template <typename In, typename Out, typename T, bool LEAN>
+void host_step(const StepIn<In, T>& in, Out* fo, T* ro, T* xo, T* yo, const Geom& g, T tau,
+               T u) {
+  const int NY = g.NY, NX = g.NX;
+  std::vector<T> P(static_cast<size_t>(NY + 2) * NX * kQ);
+  const auto at = [&](int y, int x, int i) -> T& {
+    return P[(static_cast<size_t>(y + 1) * NX + x) * kQ + i];
+  };
+  for (int y = -1; y <= NY; ++y)
+    for (int x = 0; x < NX; ++x) {
+      T post[kQ];
+      if (!collide_source_site<In, T, LEAN>(in, g, y, x, tau, post)) continue;
+      for (int i = 0; i < kQ; ++i) at(y, x, i) = post[i];
+    }
+  for (int y = 0; y < NY; ++y)
+    for (int x = 0; x < NX; ++x) {
+      T out[kQ];
+      pull_site<T>([&](int i, int dy, int dx) { return at(y + dy, x + dx, i); }, g, y, x, u,
+                   out);
+      store_site<Out, T, LEAN>(out, fo, ro, xo, yo, static_cast<int64_t>(NY) * NX,
+                               static_cast<int64_t>(y) * NX + x);
+    }
+}
+
+template <typename S, typename T>
+void run_step(int lean, const void* const* p, void* const* o, double u, double tau,
+              const Geom& g) {
+  const StepIn<S, T> in{static_cast<const S*>(p[0]), static_cast<const T*>(p[1]),
+                        static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+                        static_cast<const S*>(p[4]), static_cast<const T*>(p[5]),
+                        static_cast<const S*>(p[6]), static_cast<const T*>(p[7])};
+  if (lean)
+    host_step<S, S, T, true>(in, static_cast<S*>(o[0]), nullptr, nullptr, nullptr, g,
+                             static_cast<T>(tau), static_cast<T>(u));
+  else
+    host_step<S, S, T, false>(in, static_cast<S*>(o[0]), static_cast<T*>(o[1]),
+                              static_cast<T*>(o[2]), static_cast<T*>(o[3]), g,
+                              static_cast<T>(tau), static_cast<T>(u));
+}
+
+// the window: cavity_multistep_kernel's steps, ping-ponging in T
+template <typename S, typename T>
+void run_window(const void* f, void* fo, const Geom& g, const Window<T>& w) {
+  std::vector<T> a(static_cast<size_t>(kQ) * g.NY * g.NX), b(a.size());
+  const auto in = [](const auto* src) {
+    using In = std::remove_cv_t<std::remove_pointer_t<decltype(src)>>;
+    return StepIn<In, T>{src, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  };
+  const S* fs = static_cast<const S*>(f);
+  S* fd = static_cast<S*>(fo);
+  for (int k = 0; k < w.K; ++k) {
+    const T u = lid_ramp(w, k);
+    T* prev = (k & 1) ? a.data() : b.data();
+    T* next = (k & 1) ? b.data() : a.data();
+    if (w.K == 1)
+      host_step<S, S, T, true>(in(fs), fd, nullptr, nullptr, nullptr, g, w.tau, u);
+    else if (k == 0)
+      host_step<S, T, T, true>(in(fs), next, nullptr, nullptr, nullptr, g, w.tau, u);
+    else if (k == w.K - 1)
+      host_step<T, S, T, true>(in(prev), fd, nullptr, nullptr, nullptr, g, w.tau, u);
+    else
+      host_step<T, T, T, true>(in(prev), next, nullptr, nullptr, nullptr, g, w.tau, u);
+  }
+}
+
+extern "C" int host_cavity_step(int mode, int lean, const void* const* p, void* const* o,
+                                double u, double tau, const int* geom) {
+  const Geom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
+  if (mode == 0) run_step<double, double>(lean, p, o, u, tau, g);
+  else if (mode == 1) run_step<float, float>(lean, p, o, u, tau, g);
+  else run_step<__nv_bfloat16, float>(lean, p, o, u, tau, g);
+  return 0;
+}
+
+extern "C" int host_cavity_window(int mode, const void* f, void* fo, int t0, int K,
+                                  double u_lid, double sigma, double tau, const int* geom) {
+  const Geom g{geom[0], geom[1], 0, 0, geom[2], geom[3]};
+  if (mode == 0)
+    run_window<double, double>(f, fo, g, make_window<double>(t0, K, u_lid, sigma, tau));
+  else if (mode == 1)
+    run_window<float, float>(f, fo, g, make_window<float>(t0, K, u_lid, sigma, tau));
+  else
+    run_window<__nv_bfloat16, float>(f, fo, g, make_window<float>(t0, K, u_lid, sigma, tau));
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_cavity(tmp_path_factory):
+    so = _build_host(tmp_path_factory, "host_cavity", _CAVITY_HOST, _STUBS)
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    so.host_cavity_step.argtypes = [ci, ci, vp, vp, cd, cd, vp]
+    so.host_cavity_window.argtypes = [ci, vp, vp, ci, ci, cd, cd, cd, vp]
+    return so
+
+
+def _cavity_warm(cfg, seed):
+    """A cavity state 12 plain steps in (past the sigma = 10 lid ramp), with
+    a seeded relative perturbation of ~1e-3 of the full populations and the
+    stored macros (numpy, float64; the velocities additive)."""
+    plain = dataclasses.replace(cfg, backend="plain")
+    st = cavity.make_rollout(plain, 12)(cavity.init_state(plain, "cpu"))
+    rng = np.random.default_rng(seed)
+
+    def perturb(t, additive=0.0):
+        a = t.double().numpy()
+        noise = rng.standard_normal(a.shape)
+        return torch.from_numpy(a * (1 + 1e-3 * noise) + additive * noise
+                                ).to(cfg.dtype)
+
+    f = cavity.encode_f(cfg, perturb(cavity.decode_f(cfg, st.f)))
+    return st._replace(f=f.contiguous(), rho=perturb(st.rho),
+                       ux=perturb(st.ux, 1e-4), uy=perturb(st.uy, 1e-4))
+
+
+# rows of a 45x20 grid (NY x NX): ragged shards that hold the bottom wall,
+# neither wall, and the lid, and the whole grid (the single-device kernels)
+_CAVITY_CUTS = {"bottom": slice(0, 13), "interior": slice(13, 30),
+                "lid": slice(30, 45), "whole": slice(0, 45)}
+
+
+@pytest.mark.parametrize("where", list(_CAVITY_CUTS))
+def test_cavity_site_code_matches_plain_versions_bitwise(host_cavity, where):
+    """csrc/cavity_site.cuh against the plain versions of the stored and
+    lean steps (the halo kernels on a shard with 3-deep strips; the single-
+    device kernels on the whole grid) and of the K = 3 window from step 4,
+    inside the lid ramp (the gated window on the shard extended by 3 rows,
+    the single-device one on the whole grid), in f64, f32 and bf16
+    storage, bit for bit."""
+    rows = _CAVITY_CUTS[where]
+    whole = where == "whole"
+    for dtype, storage in [(torch.float64, "native"),
+                           (torch.float32, "native"),
+                           (torch.float32, "bf16")]:
+        cfg = CavityConfig(NX=20, NY=45, dtype=dtype, storage=storage)
+        st = _cavity_warm(cfg, rows.start * 100 + rows.stop)
+        u = cavity._lid_speed(cfg, 15)
+        tau, mode = cfg.tau, fused_cavity._MODES[(st.f.dtype, dtype)]
+        NYl = rows.stop - rows.start
+        tag = f"{where} {storage} {dtype}"
+        for lean in (False, True):
+            macros = None if lean else (st.rho, st.ux, st.uy)
+            if whole:
+                args = (st.f,) + (() if lean else macros)
+                strips, walls = (None,) * 4, (0, NYl - 1)
+                want = (fused_cavity.collide_stream_cavity_lean_reference(
+                    st.f, u, tau=tau) if lean else
+                        fused_cavity.collide_stream_cavity_reference(
+                            st.f, *macros, u, tau=tau))
+            else:
+                args, (bottom, top) = fused_cavity.halo_inputs(
+                    st.f, macros, rows, depth=3)
+                strips = ((args[1], None, args[2], None) if lean
+                          else args[4:])
+                walls = (0 if bottom else -1, NYl - 1 if top else -1)
+                want = (fused_cavity.collide_stream_cavity_halo_lean_reference
+                        if lean else
+                        fused_cavity.collide_stream_cavity_halo_reference)(
+                    *args, u, bottom, top, tau=tau)
+                args = args[:1] if lean else args[:4]
+            want = [want] if lean else list(want)
+            got = [torch.empty_like(w) for w in want]
+            ins = (ctypes.c_void_p * 8)(
+                *(None if t is None else t.data_ptr()
+                  for t in (args + (None,) * 3)[:4] + tuple(strips)))
+            outs = (ctypes.c_void_p * 4)(
+                *[t.data_ptr() for t in got] + [None] * (4 - len(got)))
+            depth = [0 if s is None else s.shape[1] for s in strips[::2]]
+            geom = (ctypes.c_int * 6)(NYl, 20, *depth, *walls)
+            host_cavity.host_cavity_step(mode, int(lean), ins, outs, u, tau,
+                                         geom)
+            for name, a, b in zip(("f", "rho", "ux", "uy"), got, want):
+                assert torch.equal(a, b), (
+                    f"{tag} {'lean' if lean else 'stored'} {name}: "
+                    f"{int((a != b).sum())} of {a.numel()} elements differ")
+        k = 3
+        block, wall_rows = ((st.f, (0, 44)) if whole else
+                            fused_cavity.window_inputs(st.f, rows, k))
+        kw = dict(tau=tau, k_steps=k, u_lid=cfg.u_lid, sigma=cfg.sigma)
+        want = fused_cavity.collide_stream_cavity_multistep_gated_reference(
+            block, 4, wall_rows, **kw)
+        got = torch.empty_like(want)
+        geom = (ctypes.c_int * 4)(block.shape[1], 20, *wall_rows)
+        host_cavity.host_cavity_window(mode, block.data_ptr(),
+                                       got.data_ptr(), 4, k, cfg.u_lid,
+                                       cfg.sigma, tau, geom)
+        assert torch.equal(got, want), (
+            f"{tag} window: {int((got != want).sum())} of {got.numel()} "
+            f"elements differ")
+
+
 _FFT_HOST = r"""
 #include <vector>
 
@@ -337,18 +556,7 @@ extern "C" int host_fft_solve(const float* rho, const float* tw_x,
 
 @pytest.fixture(scope="module")
 def host_fft(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build the transform code with")
-    d = tmp_path_factory.mktemp("host_fft")
-    src, lib = d / "host_fft.cpp", d / "libhostfft.so"
-    src.write_text(_FFT_HOST)
-    r = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
-                        "-fno-fast-math", "-fPIC", "-shared", f"-I{CSRC}",
-                        str(src), "-o", str(lib)],
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
-    so = ctypes.CDLL(str(lib))
+    so = _build_host(tmp_path_factory, "host_fft", _FFT_HOST, {})
     so.host_fft_solve.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     so.host_fft_solve.restype = ctypes.c_int
     return so

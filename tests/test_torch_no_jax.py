@@ -1,5 +1,6 @@
 """lbm_tpu_torch imports and runs without JAX (the GPU machine has none):
-every module, the 2-D, multistep, debug-dump, cavity and 3-D CLIs."""
+every module, the 2-D, multistep, debug-dump, cavity and 3-D CLIs, and the
+sharded cavity CLI on a one-rank gloo group."""
 import os
 import subprocess
 import sys
@@ -39,10 +40,21 @@ _SCRIPT = textwrap.dedent("""
     assert out["finite"] and out["state"].step == 2, out
     with open(sys.argv[1] + "/dbg/debug_dump.txt") as fh:
         assert fh.read().count("stage = ") == 10
+    import torch.distributed as dist
+    from lbm_tpu_torch.parallel import mesh as pmesh
+    pmesh.init_distributed("cpu", init_method="file://" + sys.argv[1]
+                           + "/store", rank=0, world_size=1)
+    for flags in ([], ["--lean"], ["--multistep", "2"]):
+        out = cavity_main(["--device", "cpu", "--shard", "1", "--nx", "16",
+                           "--steps", "3", "--out",
+                           sys.argv[1] + "/shard"] + flags)
+        assert out["finite"] and out["state"].step == 3, out
+    dist.destroy_process_group()
     for m in ("ops.d3", "models.plasma3d", "kernels.fused_step3d",
               "run_plasma3d", "kernels.fft_tpu", "models.plasma_staged",
               "io.debug_dump", "parallel.mesh", "parallel.sharding",
-              "parallel.poisson", "parallel.fused_sharded"):
+              "parallel.poisson", "parallel.fused_sharded",
+              "kernels.fused_cavity", "run_cavity"):
         assert "lbm_tpu_torch." + m in sys.modules, m
     assert not any(n == "lbm_tpu" or n.startswith(("lbm_tpu.", "jax."))
                    for n in sys.modules), "JAX or lbm_tpu was imported"

@@ -13,9 +13,6 @@ neutral site, sharding aside. Against the port's own single-device plain
 step they hold at 1e-12 of scale, and under NONE bit for bit.
 """
 import dataclasses
-import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -35,33 +32,10 @@ from torch_parity import as_numpy, assert_close, configs, np_of, op_by_op
 
 torch.set_num_threads(1)
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-
-
-def _spawn(scenario, world, tmp):
-    """Run `scenario` on `world` rank processes; returns rank 0's result."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "torch_dist_ranks.py"), scenario,
-         str(r), str(world), str(tmp / "store"), str(tmp)],
-        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
-    return torch.load(tmp / "result.pt", weights_only=False)  # our own file
-
 
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
-    return _spawn("steps", 4, tmp_path_factory.mktemp("steps"))
+    return ranks.spawn("steps", 4, tmp_path_factory.mktemp("steps"))
 
 
 @pytest.fixture(scope="module")
@@ -193,7 +167,7 @@ def test_shard_refusals_before_any_group(tmp_path):
 
 
 def test_ring_shift_and_cli_on_two_ranks(tmp_path):
-    out = _spawn("ring_cli", 2, tmp_path)
+    out = ranks.spawn("ring_cli", 2, tmp_path)
     # the peer ahead is the peer behind: each rank holds the other's
     for r, got in enumerate(out["received"]):
         other = 1 - r

@@ -1,4 +1,6 @@
-"""Rank bodies of tests/test_torch_sharded.py (not collected).
+"""Rank bodies of tests/test_torch_sharded.py and
+tests/test_torch_cavity_sharded.py (not collected), and spawn(), which runs
+them.
 
     python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
 
@@ -9,17 +11,41 @@ OUT_DIR/result.pt. It imports torch and lbm_tpu_torch only, never JAX.
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 
 import torch
 import torch.distributed as dist
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 
-from lbm_tpu_torch.config import PlasmaConfig, PoissonSolver  # noqa: E402
-from lbm_tpu_torch.models import plasma  # noqa: E402
+from lbm_tpu_torch.config import (CavityConfig, PlasmaConfig,  # noqa: E402
+                                  PoissonSolver)
+from lbm_tpu_torch.models import cavity, plasma  # noqa: E402
 from lbm_tpu_torch.parallel import fused_sharded, mesh, sharding  # noqa: E402
+
+
+def spawn(scenario: str, world: int, tmp):
+    """Run `scenario` on `world` rank processes (tmp: a pathlib.Path for
+    the store and the result); returns rank 0's result."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "torch_dist_ranks.py"), scenario,
+         str(r), str(world), str(tmp / "store"), str(tmp)],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+    return torch.load(tmp / "result.pt", weights_only=False)  # our own file
 
 # (label, mesh shape, NY, NX, solver, dtype, storage, neutral_delta)
 STEP_CASES = [
@@ -93,7 +119,77 @@ def ring_and_cli(out_dir: str) -> None:
                                                            "result.pt"))
 
 
-SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli}
+# the cavity on a (world, 1) mesh: (label, NY, NX, dtype, storage, path,
+# steps, K); path "stored" and "lean" march make_fused_sharded_cavity_step,
+# "rollout" runs make_fused_sharded_cavity_rollout (lean), "window"
+# make_fused_sharded_cavity_multistep_rollout
+F64, F32 = torch.float64, torch.float32
+CAVITY_CASES = {
+    4: [("f64_stored", 64, 48, F64, "native", "stored", 30, 0),
+        ("f64_lean", 64, 48, F64, "native", "lean", 30, 0),
+        ("bf16_stored", 64, 48, F32, "bf16", "stored", 20, 0),
+        ("bf16_lean", 64, 48, F32, "bf16", "rollout", 20, 0),
+        ("window_16_8", 32, 48, F64, "native", "window", 16, 8)],
+    2: [("f64_stored", 64, 48, F64, "native", "stored", 30, 0),
+        ("f64_lean", 64, 48, F64, "native", "lean", 30, 0),
+        ("f32_lean_marching", 32, 32, F32, "native", "lean", 12, 0),
+        ("f32_lean_rollout", 32, 32, F32, "native", "rollout", 12, 0),
+        ("window_23_5", 32, 48, F64, "native", "window", 23, 5)],
+}
+# the sharded cavity CLI's runs on two ranks: (label, extra flags)
+CAVITY_CLI = [("stored", []), ("multistep", ["--multistep", "4"])]
+CAVITY_CLI_ARGS = ["--device", "cpu", "--nx", "32", "--steps", "30", "--f64"]
+
+
+def cavity_config(NY, NX, dtype, storage, path, K) -> CavityConfig:
+    return CavityConfig(NX=NX, NY=NY, dtype=dtype, storage=storage,
+                        backend="fused", lean_macros=path in ("lean",
+                                                              "rollout"),
+                        multistep=K)
+
+
+def cavity_runs(out_dir: str) -> None:
+    """Every CAVITY_CASES case of this world size through its sharded path;
+    on two ranks also the CLI's refusal of --shard 3 and its CAVITY_CLI
+    runs. Rank 0 saves the gathered states."""
+    from lbm_tpu_torch import run_cavity
+
+    n = dist.get_world_size()
+    m = mesh.make_mesh((n, 1), "cpu")
+    results = {}
+    for label, NY, NX, dtype, storage, path, steps, K in CAVITY_CASES[n]:
+        cfg = cavity_config(NY, NX, dtype, storage, path, K)
+        state = sharding.shard_cavity_state(cavity.init_state(cfg, "cpu"), m)
+        if path in ("stored", "lean"):
+            step = fused_sharded.make_fused_sharded_cavity_step(cfg, m)
+            for _ in range(steps):
+                state = step(state)
+        elif path == "rollout":
+            state = fused_sharded.make_fused_sharded_cavity_rollout(
+                cfg, m, steps)(state)
+        else:
+            state = fused_sharded.make_fused_sharded_cavity_multistep_rollout(
+                cfg, m, steps)(state)
+        results[label] = sharding.gather_cavity_state(state, m)
+    if n == 2:
+        try:
+            run_cavity.main(["--device", "cpu", "--shard", "3", "--out",
+                             os.path.join(out_dir, "refused")])
+            results["refused"] = None
+        except SystemExit as e:
+            results["refused"] = str(e)
+        for label, flags in CAVITY_CLI:
+            summary = run_cavity.main(
+                [*CAVITY_CLI_ARGS, "--shard", "2", "--out",
+                 os.path.join(out_dir, "cli_" + label), *flags])
+            results["cli_" + label] = {k: summary[k] for k in (
+                "launches", "state", "n_devices", "finite", "mass_drift")}
+    if dist.get_rank() == 0:
+        torch.save(results, os.path.join(out_dir, "result.pt"))
+
+
+SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli,
+             "cavity": cavity_runs}
 
 
 def main(argv) -> None:
