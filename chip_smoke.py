@@ -130,6 +130,30 @@ phase fails:
   11c. 2048^2 f32 stored, lean and multistep K = 32 sharded over a world
      of one, beside the single-device rollouts: ms/step and MLUPS; the
      state finite.
+  12a. the 3-D halo kernel (collide_stream_halo3d on z-shards,
+     collide_stream_panel3d with halo_rows on y-shards, _panel3d_zhalo on
+     (dz, dy) tiles): seeded warm 64^3 columns in f64, f32 and bf16 + delta
+     cut into 2, 4 and 8 z-shards, 2 and 4 y-shards and (2, 2), (1, 2),
+     (2, 1), (4, 2) tiles, and a 24x40x48 (x, y, z) f32 + delta column cut
+     unevenly; every shard bitwise equal to collide_stream3d on the full
+     grid at its sites and to its plain version;
+  12b. the z-, y- and (1, 1) yz-sharded 3-D steps on a one-rank NCCL group
+     at 64^3: NONE f32 + delta and bf16 + delta, 20 steps, bitwise equal to
+     the single-device fused step, with 20 launches of each step's kernel
+     (counts reset just before); f64 FFT, 10 steps, each from the single-
+     device trajectory's state, within 1e-11 of scale;
+     the K = 8 windows (20 steps, either kill setting) bitwise equal to the
+     single-device rollout; then torchrun --nproc-per-node 1 of the 3-D CLI
+     with --shard 1 --multistep 8 --poisson NONE: 50 launches, slices 40
+     and 50 bitwise equal to the single-device CLI's;
+  12c. the 3-D halo kernel at the shard shapes of a 256^3 column on 1 card
+     (256^3 in each geometry) and on 4 (64x256x256 z, 256x64x256 y,
+     128x128x256 tile), bf16 + delta and f32, beside collide_stream3d and
+     the byte bound (928 / 472 B a shard site plus the strips' sites read);
+     the plain version's ms at the 4-card shapes; the 256^3 bf16 + delta FFT
+     z, y and yz steps over a world of one beside the single-device step,
+     the z step's sharded solve + E beside rfftn's; the K = 8 NONE window
+     at 256^3 beside the single-device step.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -139,7 +163,8 @@ The line before the last is a JSON object {"kernels": [...]}: for each
 kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
 reset before the run; 9b's step run for the spectral solve; 10b's 2048^2
 FFT runs for the halo kernels; 11b's 128^2 runs for the cavity's y-shard
-kernels), its worst
+kernels; 12b's 64^3 f32 + delta NONE runs for the 3-D halo kernel in its
+three roles), its worst
 error against its plain version, its time beside the plain version's,
 beside its bound and, where one PyTorch call computes the same function,
 beside that call's (library_ms), at the main path's shapes. The last line is {"ok": true, "device": {...}}; with --only, no
@@ -500,13 +525,14 @@ def phase_golden():
 
 def _reset_launches():
     """Every plasma kernel's launch count to 0 (the 2-D ones, the halo
-    kernels and the 3-D collide_stream3d)."""
+    kernels, the 3-D collide_stream3d and its halo kernel)."""
     from lbm_tpu_torch.kernels import fused_step, fused_step3d
     from lbm_tpu_torch.run_plasma import KERNELS
     for mod in (*KERNELS.values(), fused_step3d):
         mod.LAUNCHES = 0
-    for name in fused_step.HALO_LAUNCHES:
-        fused_step.HALO_LAUNCHES[name] = 0
+    for counts in (fused_step.HALO_LAUNCHES, fused_step3d.HALO_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def phase_sor_bounceback():
@@ -2291,13 +2317,13 @@ def phase_cavity_halo_kernels():
     return worst, times
 
 
-def _cavity_group():
-    """A one-rank NCCL group for phase 11 (torchrun's environment is not
-    needed: the CLI keeps a group that exists)."""
+def _one_rank_group(name="cavity"):
+    """A one-rank NCCL group for phases 11 and 12 (torchrun's environment
+    is not needed: the CLIs keep a group that exists)."""
     import shutil
 
     from lbm_tpu_torch.parallel import mesh as pmesh
-    store = os.path.join(OUT, "dist_store_cavity")
+    store = os.path.join(OUT, f"dist_store_{name}")
     shutil.rmtree(store, ignore_errors=True)
     os.makedirs(store)
     return pmesh.init_distributed("cuda", init_method=f"file://{store}/store",
@@ -2319,7 +2345,7 @@ def phase_cavity_sharded_cli():
 
     print("== phase 11b: the cavity CLI with --shard 1 on a one-rank NCCL "
           "group")
-    _cavity_group()
+    _one_rank_group()
     launches = {}
     try:
         steps = 2000
@@ -2390,7 +2416,7 @@ def phase_cavity_sharded_real_size():
 
     print("== phase 11c: 2048^2 f32 cavity sharded over a world of one "
           "(CUDA events)")
-    device = _cavity_group()
+    device = _one_rank_group()
     try:
         m = pmesh.make_mesh((1, 1), "cuda")
         n = 2048
@@ -2434,13 +2460,409 @@ def phase_cavity_sharded_real_size():
         dist.destroy_process_group()
 
 
+# phase 12: the 3-D halo kernel's cuts of full grids, (dz, dy); None keeps
+# the axis whole (z-shards: collide_stream_halo3d; y-shards:
+# collide_stream_panel3d with halo_rows; tiles: _panel3d_zhalo)
+HALO3D_CUTS = [(2, None), (4, None), (8, None), (None, 2), (None, 4),
+               (2, 2), (1, 2), (2, 1), (4, 2)]
+# (label, NX, NY, NZ, mode of COLLIDE_MODES, cuts)
+HALO3D_GRIDS = [
+    ("64^3", 64, 64, 64, "f64", HALO3D_CUTS),
+    ("64^3", 64, 64, 64, "f32", HALO3D_CUTS),
+    ("64^3", 64, 64, 64, "bf16+delta", HALO3D_CUTS),
+    ("24x40x48", 24, 40, 48, "f32+delta",
+     [(2, None), (3, None), (None, 5), (3, 5), (1, 5), (2, 1)]),
+]
+HALO3D_NAMES = ("collide_stream_halo3d", "collide_stream_panel3d",
+                "collide_stream_panel3d_zhalo")
+# phase 12b's column: the 3-D CLI's default 64^3, which its CLI runs use
+SHARDED3D_N = 64
+
+
+def _halo3d_name(zs, ys):
+    return HALO3D_NAMES[0 if ys is None else 1 if zs is None else 2]
+
+
+def _cuts3d(NZ, NY, dz, dy):
+    """(slices, rows) of every shard of a (dz, dy) cut; None: whole."""
+    zs = ([None] if dz is None else
+          [slice(b * NZ // dz, (b + 1) * NZ // dz) for b in range(dz)])
+    ys = ([None] if dy is None else
+          [slice(b * NY // dy, (b + 1) * NY // dy) for b in range(dy)])
+    return [(z, y) for z in zs for y in ys]
+
+
+def _halo3d_bound_ms(strips):
+    """(least ms, "bytes" or "operations") of one 3-D halo launch: the
+    shard's f and g read and written, E read, rho_q written (928 / 472 B a
+    site), each strip site read once (f, g, E), against FLOP_PER_SITE_3D
+    for every site of the extended block."""
+    shard, zhalo, yrows, corners = strips
+    f, Ex = shard[0], shard[2]
+    p, e = f.element_size(), Ex.element_size()
+    NZ, NY, NX = Ex.shape
+    edge = sum(grp[2].numel() for grp in (*(zhalo or ()), *(yrows or ()),
+                                          *(corners or ())))
+    nbytes = NZ * NY * NX * (228 * p + 4 * e) + edge * (114 * p + 3 * e)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ext = ((NZ + 2 * (zhalo is not None)) * (NY + 2 * (yrows is not None))
+           * NX)
+    rate = F64_FLOP_PER_S if e == 8 else F32_FLOP_PER_S
+    t_ops = FLOP_PER_SITE_3D * ext / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_halo3d_kernel():
+    """Phase 12a: the 3-D halo kernel on every shard of every cut of seeded
+    warm full grids, bitwise against collide_stream3d on the full grid at
+    the shard's sites and against its plain version. Returns the worst
+    max|err| against the plain version in f64, by kernel name (0 when
+    bitwise)."""
+    import torch
+    from lbm_tpu_torch.config import PlasmaConfig
+    from lbm_tpu_torch.kernels import fused_panel3d, fused_step3d
+
+    print("== phase 12a: the 3-D halo kernel on cuts of full grids, bitwise "
+          "vs collide_stream3d and vs its plain versions")
+    device = torch.device("cuda")
+    modes = {m[0]: m for m in COLLIDE_MODES}
+    worst = dict.fromkeys(HALO3D_NAMES, 0.0)
+    for label, NX, NY, NZ, mode, cuts in HALO3D_GRIDS:
+        _, dtype, storage, delta = modes[mode][:4]
+        cfg = PlasmaConfig(NX=NX, NY=NY, NZ=NZ, dtype=getattr(torch, dtype),
+                           storage=storage, neutral_delta=delta)
+        phys = phys_of(cfg)
+        st = _seeded_state3d(cfg, device, NZ * 10000 + NY * 100 + NX, 1)
+        arrays = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+        full = fused_step3d.collide_stream3d(*arrays, **phys)
+        held = 0
+        for dz, dy in cuts:
+            for zs, ys in _cuts3d(NZ, NY, dz, dy):
+                strips = fused_step3d.halo_inputs3d(arrays, zs, ys)
+                k_out = fused_panel3d.collide_stream_shard3d(*strips, **phys)
+                p_out = fused_step3d.halo3d_reference(*strips, **phys)
+                torch.cuda.synchronize()
+                at = (zs or slice(None), ys or slice(None), slice(None))
+                name = _halo3d_name(zs, ys)
+                for out, kg, pg, fg in zip(("f", "g", "rho_q"), k_out, p_out,
+                                           full):
+                    where = (f"{label} {mode} cut {dz}x{dy} shard "
+                             f"({zs}, {ys}) {out}")
+                    require(torch.equal(kg, fg[(..., *at)]),
+                            f"{where}: not bitwise equal to collide_stream3d "
+                            f"on the full grid")
+                    mx = float((kg.double() - pg.double()).abs().max())
+                    if dtype == "float64":
+                        worst[name] = max(worst[name], mx)
+                    require(torch.equal(kg, pg), f"{where}: not bitwise "
+                            f"equal to its plain version (max|err| {mx:.3e})")
+                held += 1
+        print(f"{label:>9} {mode:>10}: {held} shards of {len(cuts)} cuts, "
+              f"each bitwise equal to collide_stream3d on the full grid and "
+              f"to its plain version")
+        del st, arrays, full
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_sharded3d_world_of_one():
+    """Phase 12b: the z-, y- and (1, 1) yz-sharded 3-D steps and the K-slice
+    windows on a one-rank NCCL group, against the single-device fused step
+    and rollout: bitwise under NONE, within 1e-11 of scale under FFT in
+    f64, each step from the single-device trajectory's state; then the CLI
+    under torchrun with --shard 1 --multistep 8 --poisson NONE against the
+    single-device CLI's slices. Returns each halo kernel's
+    launches in the 64^3 f32+delta NONE runs (counts set to 0 just before
+    each run, read just after)."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch import run_plasma3d
+    from lbm_tpu_torch.config import PlasmaConfig, PoissonSolver
+    from lbm_tpu_torch.kernels import fused_step3d
+    from lbm_tpu_torch.models import plasma3d
+    from lbm_tpu_torch.parallel import fused_sharded, sharding
+    from lbm_tpu_torch.parallel import mesh as pmesh
+
+    print("== phase 12b: the sharded 3-D steps and windows on a one-rank "
+          "NCCL group, (1, 1) mesh")
+    device = _one_rank_group("plasma3d")
+    N = SHARDED3D_N
+    fields = ("f", "g", "Ex", "Ey", "Ez", "phi")
+    launches = {}
+    try:
+        m = pmesh.make_mesh3d((1, 1), "cuda")
+        steps3d = (("collide_stream_halo3d",
+                    fused_sharded.make_fused_sharded_step3d),
+                   ("collide_stream_panel3d",
+                    fused_sharded.make_fused_sharded_step3d_y),
+                   ("collide_stream_panel3d_zhalo",
+                    fused_sharded.make_fused_sharded_step3d_yz))
+        modes = {mode[0]: mode for mode in COLLIDE_MODES}
+        for mode, poisson, steps in (("f32+delta", "NONE", 20),
+                                     ("bf16+delta", "NONE", 20),
+                                     ("f64", "FFT", 10)):
+            _, dtype, storage, delta = modes[mode][:4]
+            cfg = PlasmaConfig(NX=N, NY=N, NZ=N,
+                               dtype=getattr(torch, dtype), storage=storage,
+                               neutral_delta=delta,
+                               poisson=PoissonSolver[poisson],
+                               backend="fused")
+            st0 = _seeded_state3d(cfg, device, 646464, 1)
+            trajectory = [st0]
+            step = plasma3d.make_step(cfg)
+            for _ in range(steps):
+                trajectory.append(step(trajectory[-1]))
+            line = []
+            for name, make in steps3d:
+                step = make(cfg, m)
+                _reset_launches()
+                if poisson == "NONE":
+                    state = sharding.shard_state3d(st0, m)
+                    for _ in range(steps):
+                        state = step(state)
+                    pairs = [(state, trajectory[-1])]
+                else:
+                    # each step from the single-device trajectory's state:
+                    # the sharded solve rounds otherwise than rfftn, ~1e-15
+                    # of E's scale, which the physics grows along a
+                    # trajectory (to 5e-11 of g's scale in 10 steps here)
+                    pairs = [(step(sharding.shard_state3d(a, m)), b)
+                             for a, b in zip(trajectory, trajectory[1:])]
+                torch.cuda.synchronize()
+                counts = dict(fused_step3d.HALO_LAUNCHES)
+                require(counts == {k: steps if k == name else 0
+                                   for k in counts}
+                        and fused_step3d.LAUNCHES == 0,
+                        f"{name} step: launches {counts}, collide_stream3d "
+                        f"{fused_step3d.LAUNCHES}")
+                if mode == "f32+delta":
+                    launches[name] = counts[name]
+                worst = dict.fromkeys(fields, 0.0)
+                for got, want in pairs:
+                    for k in fields:
+                        a, b = getattr(got, k), getattr(want, k)
+                        if poisson == "NONE":
+                            require(torch.equal(a, b), f"{N}^3 {mode} NONE "
+                                    f"{name} step: {k} not bitwise equal to "
+                                    f"the single-device fused step")
+                            continue
+                        _, ratio, _ = _errors(a, b, 0, 1e-11)
+                        require(ratio <= 1.0, f"{N}^3 f64 FFT {name} step "
+                                f"{a.shape}: {k} at {ratio:.3f} x 1e-11 of "
+                                f"scale")
+                        worst[k] = max(worst[k], ratio)
+                line.append(f"{name}: " + ", ".join(
+                    f"{k} {r:.1e}" for k, r in worst.items()))
+                del pairs
+            print(f"{N}^3 {mode} {poisson}, {steps} steps: z, y and yz steps "
+                  + ("bitwise equal to the single-device fused step"
+                     if poisson == "NONE" else
+                     "each from the single-device state, within 1e-11 of "
+                     "scale of the single-device step (worst share of the "
+                     "gate) " + "; ".join(line)))
+            del st0, trajectory
+        for kill in (True, False):
+            cfg = PlasmaConfig(NX=N, NY=N, NZ=N, dtype=torch.float32,
+                               neutral_delta=True,
+                               poisson=PoissonSolver.NONE, backend="fused",
+                               multistep=8)
+            cfg = dataclasses.replace(cfg, compat=dataclasses.replace(
+                cfg.compat, none_solver_kills_external_field=kill))
+            st0 = _seeded_state3d(dataclasses.replace(cfg, multistep=0),
+                                  device, 6408, 1)
+            _reset_launches()
+            got = fused_sharded.make_fused_sharded_multistep_rollout_3d(
+                cfg, m, 20)(sharding.shard_state3d(st0, m))
+            n_win = fused_step3d.LAUNCHES
+            want = plasma3d.make_rollout(dataclasses.replace(
+                cfg, multistep=0), 20)(st0)
+            torch.cuda.synchronize()
+            for k in fields:
+                require(torch.equal(getattr(got, k), getattr(want, k)),
+                        f"{N}^3 window K=8 kill={kill}: {k} not bitwise "
+                        f"equal to the single-device rollout")
+            require(n_win == 20 and got.step == want.step == st0.step + 20,
+                    f"window K=8: {n_win} launches, step {got.step}")
+            print(f"{N}^3 f32+delta NONE kill={kill}, 20 steps in K = 8 "
+                  f"windows (8 + 8 + 4): bitwise equal to the single-device "
+                  f"rollout; {n_win} launches of collide_stream3d")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # the CLI under torchrun, one rank, against the single-device CLI
+    # the CLIs' default grid, N^3: under torchrun's own argument parser
+    # "--n" is an ambiguous prefix of its options
+    grid = ["--poisson", "NONE"]
+    single_out = os.path.join(OUT, "plasma3d_none")
+    run_plasma3d.main([*grid, "--out", single_out])
+    shard_out = os.path.join(OUT, "plasma3d_shard1_ms8")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1",
+           os.path.join(HERE, "scripts", "run_plasma3d_torch.py"),
+           *grid, "--shard", "1", "--multistep", "8", "--out", shard_out]
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, PYTHONPATH=HERE))
+    require(r.returncode == 0, f"torchrun CLI failed:\n{r.stderr[-3000:]}")
+    found = re.search(r"kernel launches (.*)$", r.stdout, re.M)
+    counts = dict((k, int(v)) for k, v in (
+        kv.rsplit(" ", 1) for kv in found.group(1).split(", "))) if found \
+        else {}
+    require(counts == {"collide_stream3d": 50, **dict.fromkeys(
+        HALO3D_NAMES, 0)}, f"torchrun CLI launches {counts}")
+    require("sharded 3-D multistep (K=8-slab ghosts) over 1-device dz mesh"
+            in r.stdout, f"torchrun CLI printed:\n{r.stdout[-2000:]}")
+    for t in (40, 50):
+        a = np.load(os.path.join(shard_out, f"slice_{t:05d}.npz"))
+        b = np.load(os.path.join(single_out, f"slice_{t:05d}.npz"))
+        for k in ("rho_e", "rho_q"):
+            require(np.array_equal(a[k], b[k]), f"torchrun CLI slice {t} "
+                    f"{k}: not bitwise equal to the single-device CLI's")
+    print(f"torchrun --nproc-per-node 1 ... --shard 1 --multistep 8 "
+          f"--poisson NONE ({N}^3, 50 steps): 50 launches of "
+          f"collide_stream3d in 7 windows; slices 40 and 50 bitwise equal to "
+          f"the single-device CLI's")
+    return launches
+
+
+# phase 12c's column: 256^3 (PERF.md's 3-D cells), and the shards it
+# times, (label, slices, rows, 4 cards) (None: the axis whole): those of a
+# world of one, and of 4 cards
+TIMED3D_N = 256
+HALO3D_TIMED = [
+    ("N^3 z", (0, 1), None, False),
+    ("N^3 y", None, (0, 1), False),
+    ("N^3 tile", (0, 1), (0, 1), False),
+    ("N/4xNxN z", (0, 4), None, True),
+    ("NxN/4xN y", None, (0, 4), True),
+    ("N/2xN/2xN tile", (0, 2), (0, 2), True),
+]
+
+
+def phase_sharded3d_real_size():
+    """Phase 12c: the 3-D halo kernel at the shard shapes of 1 and 4 cards
+    in bf16 + delta and f32 beside collide_stream3d and its bound; the
+    256^3 bf16 + delta FFT sharded steps over a world of one beside the
+    single-device step; the K = 8 window. Returns {kernel: (ms, plain_ms,
+    bound_ms, bound_by, at)} at the 4-card shapes in f32."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch.config import PlasmaConfig, PoissonSolver
+    from lbm_tpu_torch.kernels import fused_panel3d, fused_step3d
+    from lbm_tpu_torch.models import plasma3d
+    from lbm_tpu_torch.parallel import fused_sharded, poisson, sharding
+    from lbm_tpu_torch.parallel import mesh as pmesh
+
+    N = TIMED3D_N
+    print(f"== phase 12c: the 3-D halo kernel and the sharded 3-D steps at "
+          f"{N}^3 (CUDA events)")
+    device = torch.device("cuda")
+    times = {}
+    for mode in ("bf16+delta", "f32"):
+        storage = "bf16" if mode.startswith("bf16") else "native"
+        cfg = PlasmaConfig(NX=N, NY=N, NZ=N, dtype=torch.float32,
+                           storage=storage, neutral_delta=storage == "bf16",
+                           backend="fused")
+        phys = phys_of(cfg)
+        st = plasma3d.init_state(cfg, device)
+        st = plasma3d.make_step(cfg)(st)
+        arrays = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+        full_ms = _device_ms(lambda: fused_step3d.collide_stream3d(
+            *arrays, **phys), 5)
+        bound, _ = _bound3d_ms(st.f, st.Ex)
+        out = [f"collide_stream3d {N}^3 {full_ms:.4f} ms (bound "
+               f"{bound:.4f})"]
+        for label, zs, ys, four in HALO3D_TIMED:
+            zs, ys = (None if c is None else slice(c[0], N // c[1])
+                      for c in (zs, ys))
+            label = label.replace("N/4", str(N // 4)).replace(
+                "N/2", str(N // 2)).replace("N", str(N))
+            strips = fused_step3d.halo_inputs3d(arrays, zs, ys)
+            ms = _device_ms(lambda: fused_panel3d.collide_stream_shard3d(
+                *strips, **phys), 5)
+            bound, bound_by = _halo3d_bound_ms(strips)
+            item = (f"{label} {ms:.4f} ms (bound {bound:.4f} by {bound_by}, "
+                    f"{100 * bound / ms:.1f}%)")
+            if mode == "f32" and four:
+                plain_ms = _time_ms(lambda: fused_step3d.halo3d_reference(
+                    *strips, **phys), 1)
+                item += f", plain {plain_ms:.4f} ms"
+                times[_halo3d_name(zs, ys)] = (
+                    ms, plain_ms, bound, bound_by,
+                    f"{label.split()[0]} f32, a shard of {N}^3 on 4 cards")
+            out.append(item)
+            del strips
+            torch.cuda.empty_cache()
+        print(f"{mode}: " + "; ".join(out))
+        del st, arrays
+        torch.cuda.empty_cache()
+    device = _one_rank_group("plasma3d_12c")
+    try:
+        m = pmesh.make_mesh3d((1, 1), "cuda")
+        cfg = PlasmaConfig(NX=N, NY=N, NZ=N, dtype=torch.float32,
+                           storage="bf16", neutral_delta=True,
+                           backend="fused")
+        n = N ** 3
+        line = []
+        for label, make in (
+                ("single-device", plasma3d.make_step),
+                ("z", lambda c: fused_sharded.make_fused_sharded_step3d(c, m)),
+                ("y", lambda c: fused_sharded.make_fused_sharded_step3d_y(
+                    c, m)),
+                ("yz", lambda c: fused_sharded.make_fused_sharded_step3d_yz(
+                    c, m))):
+            state, ms = _window(make(cfg), plasma3d.init_state(cfg, device),
+                                2, 6)
+            require(all(bool(torch.isfinite(t.float()).all())
+                        for t in (state.f, state.g, state.Ex, state.Ey,
+                                  state.Ez)),
+                    f"{N}^3 FFT {label}: state not finite")
+            line.append(f"{label} {ms:.4f} ms/step "
+                        f"({n / (ms * 1e-3) / 1e6:.1f} MLUPS)")
+            if label == "z":
+                rho_q = fused_step3d.collide_stream3d(
+                    state.f, state.g, state.Ex, state.Ey, state.Ez,
+                    **phys_of(cfg))[2]
+                solve_ms = _device_ms(
+                    lambda: poisson.efield_periodic3d_sharded(
+                        poisson.solve_fft3d_z(rho_q, m), m), 5)
+                cufft_ms = _device_ms(lambda: plasma3d.efield_periodic3d(
+                    plasma3d.solve_fft3d(rho_q)), 5)
+                line.append(f"(z solve + E {solve_ms:.4f} ms, rfftn solve + E "
+                            f"{cufft_ms:.4f} ms)")
+                del rho_q
+            del state
+            torch.cuda.empty_cache()
+        print(f"{N}^3 bf16+delta FFT, 2 warm-up + 6 timed steps: "
+              + "; ".join(line))
+        cfg = dataclasses.replace(cfg, poisson=PoissonSolver.NONE,
+                                  multistep=8)
+        state = sharding.shard_state3d(plasma3d.init_state(cfg, device), m)
+        roll = fused_sharded.make_fused_sharded_multistep_rollout_3d(
+            cfg, m, 8)
+        state, win_ms = _window(roll, state, 1, 2)
+        require(bool(torch.isfinite(state.f.float()).all()),
+                f"{N}^3 window: state not finite")
+        del state
+        torch.cuda.empty_cache()
+        _, single_ms = _window(plasma3d.make_step(dataclasses.replace(
+            cfg, multistep=0)), plasma3d.init_state(cfg, device), 2, 6)
+        print(f"{N}^3 bf16+delta NONE, K = 8 window over a world of one "
+              f"({N + 16} slices a launch): {win_ms / 8:.4f} ms/step "
+              f"({n / (win_ms / 8 * 1e-3) / 1e6:.1f} MLUPS); single-device "
+              f"NONE step {single_ms:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return times
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
     ap.add_argument("--only", default=None,
-                    metavar="3,4,5,6,7,8,9,10,11",
+                    metavar="3,4,5,6,7,8,9,10,11,12",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -2500,6 +2922,10 @@ def main(argv=None) -> int:
         cavity_halo_err, cavity_halo_times = timed(phase_cavity_halo_kernels)
         launches.update(timed(phase_cavity_sharded_cli))
         timed(phase_cavity_sharded_real_size)
+    if run("12"):
+        halo3d_err = timed(phase_halo3d_kernel)
+        launches.update(timed(phase_sharded3d_world_of_one))
+        halo3d_times = timed(phase_sharded3d_real_size)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -2576,6 +3002,18 @@ def main(argv=None) -> int:
             "replaces": f"lbm_tpu/kernels/fused_cavity.py:{line}",
             "launches": launches[name], "max_abs_err": cavity_halo_err[name],
             "max_abs_err_at": "phase 11a, every shard of every cut",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "ms_at": at})
+    for name, line in (("collide_stream_halo3d", "fused_step3d.py:301"),
+                       ("collide_stream_panel3d", "fused_panel3d.py:371"),
+                       ("collide_stream_panel3d_zhalo",
+                        "fused_panel3d.py:502")):
+        ms, plain_ms, bound, bound_by, at = halo3d_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + "fused_step3d.cu",
+            "replaces": f"lbm_tpu/kernels/{line}",
+            "launches": launches[name], "max_abs_err": halo3d_err[name],
+            "max_abs_err_at": "phase 12a, 64^3 f64, every shard of every cut",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None, "ms_at": at})
     print(card_line())

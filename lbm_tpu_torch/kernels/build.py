@@ -119,6 +119,8 @@ SIGNATURES = {
     # stream
     "lbm_plasma3d_collide_stream": [_CI, _CI, *[_VP] * 8, _CI, _CI, _CI, _VP,
                                     _VP],
+    # mode, delta, ptr[45], f_out, g_out, rho_q, geom[5], params, stream
+    "lbm_plasma3d_collide_stream_halo": [_CI, _CI, *[_VP] * 7],
     # dtype, kind, interior_only, omega, max_iter, tol, phi0, rho, scratch,
     # out, err_ring, sweeps, NY, NX, stream
     "lbm_solve_iter": [_CI, _CI, _CI, _CD, _CI, _CD, *[_VP] * 6, _CI, _CI,

@@ -1,8 +1,9 @@
 // The per-site work of the D3Q19 plasma column's collide + push-stream
 // (fused_step3d.cu): one thread, one lattice site.
 //
-// collide_stream_site3d computes what lbm_tpu/ops/d3.update_macro3 +
-// collide_species_dirs3 + periodic streaming compute for one site:
+// collide_site3d and collide_stream_site3d compute what
+// lbm_tpu/ops/d3.update_macro3 + collide_species_dirs3 + periodic
+// streaming compute for one site:
 //   * pass 1 reads the site's 57 f and 57 g once and accumulates the 15
 //     moments (rho, px, py, pz, T of each species) in the order of
 //     ops/d3._sum_dirs / _moments3 (directions 0..18; the exact-equality
@@ -12,8 +13,10 @@
 //     f_s[i] and g_s[i] again (from L1/L2), rebuilds w_i * poly_i of the
 //     three velocity sets from the velocities (holding 114 values or the
 //     6 x 19 polynomials would not fit in registers), collides with
-//     ops/d3's expression trees and stores each value at
-//     ((x+cx) mod NX, (y+cy) mod NY, (z+cz) mod NZ) of the output.
+//     ops/d3's expression trees and hands each value to the caller, which
+//     stores it: the periodic step at ((x+cx) mod NX, (y+cy) mod NY,
+//     (z+cz) mod NZ) of the output, the halo step (halo3d_site.cuh) where
+//     it lands inside the shard.
 //
 // Numbers, as in plasma_site.cuh: constants folded in double on the host
 // (HostParams), cast once; true IEEE divisions (cu*cE / cs2 and
@@ -83,30 +86,26 @@ __device__ __forceinline__ T wpoly3_dev(int i, const Vel3<T>& v, const Params<T>
   return T(w3_of(i)) * (cu * p.inv_cs2 + (cu * cu) * p.half_inv_cs2_sq - v.u2t);
 }
 
+// The collision of one site whose 57 f and 57 g lie `off` into population
+// planes `vol` apart (species s, direction i at (s * 19 + i) * vol + off):
+// emit(s, i, fo, go) receives each post-collision pair, species by species
+// and direction by direction; returns the site's rho_q (guarded). The
+// periodic kernel and the halo kernel (halo3d_site.cuh) both collide
+// through it, so a halo site recollides bitwise as its owner does.
 // DELTA: the neutral's f holds deltas from neutral_ref * w_i.
 // FAST: bf16-storage mode, the partial-fraction thermal form.
-template <typename S, typename T, bool DELTA, bool FAST>
-__device__ __forceinline__ void collide_stream_site3d(
-    const S* __restrict__ f, const S* __restrict__ g, const T* __restrict__ Ex_in,
-    const T* __restrict__ Ey_in, const T* __restrict__ Ez_in, S* __restrict__ f_out,
-    S* __restrict__ g_out, T* __restrict__ rho_q_out, int NZ, int NY, int NX, int64_t site,
-    const Params<T>& p) {
-  const int64_t plane = static_cast<int64_t>(NY) * NX;
-  const int64_t vol = plane * NZ;
-  const int z = static_cast<int>(site / plane);
-  const int64_t rem = site - z * plane;
-  const int y = static_cast<int>(rem / NX);
-  const int x = static_cast<int>(rem - static_cast<int64_t>(y) * NX);
-  const T Ex = Ex_in[site], Ey = Ey_in[site], Ez = Ez_in[site];
-
+template <typename S, typename T, bool DELTA, bool FAST, typename Emit>
+__device__ __forceinline__ T collide_site3d(const S* __restrict__ f, const S* __restrict__ g,
+                                            int64_t vol, int64_t off, T Ex, T Ey, T Ez,
+                                            const Params<T>& p, Emit&& emit) {
   // ---- pass 1: moments, guards, mixtures, rho_q (ops/d3.update_macro3) ----
   T rho_raw[kS], rho[kS], ux[kS], uy[kS], uz[kS], temp[kS];
   bool alive[kS];
   T drho_n = T(0);
 #pragma unroll
   for (int s = 0; s < kS; ++s) {
-    const S* fs = f + static_cast<int64_t>(s) * kQ3 * vol + site;
-    const S* gs = g + static_cast<int64_t>(s) * kQ3 * vol + site;
+    const S* fs = f + static_cast<int64_t>(s) * kQ3 * vol + off;
+    const S* gs = g + static_cast<int64_t>(s) * kQ3 * vol + off;
     T r = T(0), px = T(0), py = T(0), pz = T(0), tsum = T(0);
 #pragma unroll
     for (int i = 0; i < kQ3; ++i) {
@@ -153,16 +152,7 @@ __device__ __forceinline__ void collide_stream_site3d(
                    both_dead ? T(0.0) : (ra * uy[a] + rb * uy[b]) * inv,
                    both_dead ? T(0.0) : (ra * uz[a] + rb * uz[b]) * inv, p);
   }
-  T rq = p.qom_i * rho[1] + p.qom_e * rho[0];
-  rho_q_out[site] = rq < T(1e-15) ? T(0.0) : rq;
-
-  // push-stream destinations: the wrapped -1, 0, +1 neighbours per axis
-  const int64_t zo[3] = {(z == 0 ? NZ - 1 : z - 1) * plane, z * plane,
-                         (z == NZ - 1 ? 0 : z + 1) * plane};
-  const int64_t yo[3] = {static_cast<int64_t>(y == 0 ? NY - 1 : y - 1) * NX,
-                         static_cast<int64_t>(y) * NX,
-                         static_cast<int64_t>(y == NY - 1 ? 0 : y + 1) * NX};
-  const int xo[3] = {x == 0 ? NX - 1 : x - 1, x, x == NX - 1 ? 0 : x + 1};
+  const T rq = p.qom_i * rho[1] + p.qom_e * rho[0];
 
   // ---- pass 2: collide (ops/d3.collide_species_dirs3), species by species ----
 #pragma unroll
@@ -196,8 +186,8 @@ __device__ __forceinline__ void collide_stream_site3d(
     const int64_t base = static_cast<int64_t>(s) * kQ3 * vol;
 #pragma unroll
     for (int i = 0; i < kQ3; ++i) {
-      const T fv = Io<S, T>::load(f + base + i * vol + site);
-      const T gv = Io<S, T>::load(g + base + i * vol + site);
+      const T fv = Io<S, T>::load(f + base + i * vol + off);
+      const T gv = Io<S, T>::load(g + base + i * vol + off);
       T wp[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) wp[k] = wpoly3(i, vs[k], p);
@@ -240,12 +230,41 @@ __device__ __forceinline__ void collide_stream_site3d(
         tm = (ns[0] * (ds[1] * ds[2]) + ns[1] * (ds[0] * ds[2]) + ns[2] * d12) / (d12 * ds[2]);
       }
       const T go = gv * keep + geqd + dT_amp * tm;
-      const int64_t dst = base + i * vol + zo[cz3_of(i) + 1] + yo[cy3_of(i) + 1] +
-                          xo[cx3_of(i) + 1];
-      Io<S, T>::store(f_out + dst, fo);
-      Io<S, T>::store(g_out + dst, go);
+      emit(s, i, fo, go);
     }
   }
+  return rq < T(1e-15) ? T(0.0) : rq;
+}
+
+// The periodic step's site: collide it and push each value to
+// ((x+cx) mod NX, (y+cy) mod NY, (z+cz) mod NZ).
+template <typename S, typename T, bool DELTA, bool FAST>
+__device__ __forceinline__ void collide_stream_site3d(
+    const S* __restrict__ f, const S* __restrict__ g, const T* __restrict__ Ex_in,
+    const T* __restrict__ Ey_in, const T* __restrict__ Ez_in, S* __restrict__ f_out,
+    S* __restrict__ g_out, T* __restrict__ rho_q_out, int NZ, int NY, int NX, int64_t site,
+    const Params<T>& p) {
+  const int64_t plane = static_cast<int64_t>(NY) * NX;
+  const int64_t vol = plane * NZ;
+  const int z = static_cast<int>(site / plane);
+  const int64_t rem = site - z * plane;
+  const int y = static_cast<int>(rem / NX);
+  const int x = static_cast<int>(rem - static_cast<int64_t>(y) * NX);
+  // push-stream destinations: the wrapped -1, 0, +1 neighbours per axis
+  const int64_t zo[3] = {(z == 0 ? NZ - 1 : z - 1) * plane, z * plane,
+                         (z == NZ - 1 ? 0 : z + 1) * plane};
+  const int64_t yo[3] = {static_cast<int64_t>(y == 0 ? NY - 1 : y - 1) * NX,
+                         static_cast<int64_t>(y) * NX,
+                         static_cast<int64_t>(y == NY - 1 ? 0 : y + 1) * NX};
+  const int xo[3] = {x == 0 ? NX - 1 : x - 1, x, x == NX - 1 ? 0 : x + 1};
+  rho_q_out[site] = collide_site3d<S, T, DELTA, FAST>(
+      f, g, vol, site, Ex_in[site], Ey_in[site], Ez_in[site], p,
+      [&](int s, int i, T fo, T go) {
+        const int64_t dst = (static_cast<int64_t>(s) * kQ3 + i) * vol +
+                            zo[cz3_of(i) + 1] + yo[cy3_of(i) + 1] + xo[cx3_of(i) + 1];
+        Io<S, T>::store(f_out + dst, fo);
+        Io<S, T>::store(g_out + dst, go);
+      });
 }
 
 }  // namespace

@@ -14,8 +14,9 @@ hand-written CUDA collide+stream kernel (kernels/fused_step3d.py; on CPU
 tensors its plain version). The JAX package's mass/thermal split pair and
 its y-paneled kernel exist to fit the TPU's VMEM: the CUDA kernel takes any
 cross-section, so the fused step always runs it. 3-D temporal blocking is
-the JAX package's multi-device K-slab protocol and waits for the
-multi-device module (ROADMAP Queue 1 item 14).
+the JAX package's multi-device K-slab protocol only
+(parallel/fused_sharded.make_fused_sharded_multistep_rollout_3d): make_step
+refuses cfg.multistep, as the JAX model's does.
 
 State layout: (3, 19, NZ, NY, NX) populations, (NZ, NY, NX) fields.
 """
@@ -65,10 +66,6 @@ def check_supported(cfg: PlasmaConfig) -> None:
         # as the JAX model: no separate 3-D collide-only kernel
         raise ValueError("3-D model backends are 'plain' and 'fused' "
                          "(there is no separate 3-D pallas collide kernel)")
-    if cfg.multistep:
-        raise NotImplementedError(
-            "3-D multistep is the multi-device K-slab protocol: ROADMAP "
-            "Queue 1 item 14")
     if cfg.dtype not in _NUMPY_DTYPES:
         raise NotImplementedError(f"dtype {cfg.dtype} (the port computes in "
                                   f"float32 or float64)")
@@ -171,6 +168,12 @@ def make_step(cfg: PlasmaConfig) -> Callable[[Plasma3DState], Plasma3DState]:
     with the exact reciprocal 1/x and rounded once, at the final write),
     then the Poisson dispatch."""
     check_supported(cfg)
+    if cfg.multistep:
+        # the per-step kernel is one pass over device memory already: 3-D
+        # windows exist only to amortise the multi-device exchange
+        raise ValueError(
+            "3-D multistep is multi-chip only: use parallel/fused_sharded."
+            "make_fused_sharded_multistep_rollout_3d")
     u = cfg.units()
     phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
                 cs2=u.cs2, kb=u.kb,

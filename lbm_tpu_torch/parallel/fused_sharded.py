@@ -1,7 +1,6 @@
-"""The 2-D plasma step and the lid-driven cavity sharded over ranks: ring
-halo exchange + the halo kernels (+ the plasma's sharded Poisson solve)
-(counterpart of the 2-D plasma and cavity parts of
-lbm_tpu/parallel/fused_sharded.py).
+"""The 2-D plasma step, the lid-driven cavity and the 3-D column sharded
+over ranks: ring halo exchange + the halo kernels (+ the plasma's sharded
+Poisson solve) (counterpart of lbm_tpu/parallel/fused_sharded.py).
 
 Each rank holds one block of the lattice (parallel/sharding) and runs, each
 step:
@@ -30,8 +29,18 @@ exchanges K-row slabs of f once a window and runs
 collide_stream_cavity_multistep_gated on the extended shard. The wall shards
 apply the bottom wall and the lid; the strips the ring wraps onto them are
 ignored there. The JAX package's VMEM tests (_pick_band,
-check_vmem_multistep) measure the TPU's scratch memory and are dropped: the
-CUDA kernels take any shard that fits the card.
+check_vmem_multistep, check_vmem3d, pick_panel3d's budget) measure the
+TPU's scratch memory and are dropped: the CUDA kernels take any shard that
+fits the card.
+
+The 3-D column runs on a (dz, dy) mesh (parallel/mesh.make_mesh3d): z-shards
+on (n, 1) (make_fused_sharded_step3d: the slices above and below each
+shard, collide_stream_halo3d), y-shards on (1, n) (_step3d_y: the rows,
+collide_stream_panel3d with halo_rows) and tiles on (dz, dy) (_step3d_yz:
+slices, rows and corner lines, collide_stream_panel3d_zhalo), each with
+its sharded spectral solve (parallel/poisson); _step3d_auto picks one. Its
+windows (make_fused_sharded_multistep_rollout_3d) exchange K-slice slabs
+once a window and run collide_stream3d K times on the extended shard.
 """
 from __future__ import annotations
 
@@ -44,13 +53,19 @@ from ..config import BC, CavityConfig, PlasmaConfig, PoissonSolver
 from ..kernels.fused_cavity import (collide_stream_cavity_halo,
                                     collide_stream_cavity_halo_lean,
                                     collide_stream_cavity_multistep_gated)
+from ..kernels.fused_panel3d import (check_panel, collide_stream_panel3d,
+                                     collide_stream_panel3d_zhalo)
 from ..kernels.fused_step import collide_stream_halo, collide_stream_halo2d
-from ..models import cavity
+from ..kernels.fused_step3d import collide_stream3d, collide_stream_halo3d
+from ..models import cavity, plasma3d
 from ..models.cavity import CavityState
 from ..models.plasma import PlasmaState, check_supported
-from .mesh import AXIS_X, AXIS_Y, make_mesh, mesh_shape, ring_shift
-from .poisson import solve_poisson_sharded
-from .sharding import shard_state, validate_grid
+from ..models.plasma3d import Plasma3DState
+from .mesh import (AXIS_X, AXIS_Y, AXIS_Z, make_mesh, make_mesh3d,
+                   mesh_shape, ring_shift)
+from .poisson import (efield_periodic3d_sharded, solve_fft3d_y,
+                      solve_fft3d_yz, solve_fft3d_z, solve_poisson_sharded)
+from .sharding import shard_state, shard_state3d, validate_grid
 
 GSPMD_ITEM = "ROADMAP Queue 1 item 17"
 
@@ -337,5 +352,235 @@ def make_fused_sharded_cavity_multistep_rollout(
             f = f.contiguous()
             t += k
         return CavityState(f, *cavity.macros_of(cfg, f), t)
+
+    return rollout
+
+
+# ---------------------------------------------------------------------------
+# the 3-D column
+# ---------------------------------------------------------------------------
+
+def _axes3d(mesh: DeviceMesh, axes, extra_msg: str):
+    """The sizes of `axes` on the mesh; raises where one is missing or
+    another axis is nontrivial (JAX's words: extra_msg + the list)."""
+    names = mesh.mesh_dim_names
+    for ax in axes:
+        if ax not in names:
+            raise ValueError(f"mesh must have a '{ax}' axis")
+    extra = [a for a in names
+             if a not in axes and mesh.size(names.index(a)) != 1]
+    if extra:
+        raise ValueError(f"{extra_msg}{extra}")
+    return [mesh.size(names.index(ax)) for ax in axes]
+
+
+def _refuse_solver3d(cfg: PlasmaConfig) -> None:
+    if cfg.poisson not in (PoissonSolver.FFT, PoissonSolver.NONE):
+        raise ValueError("sharded fused step supports FFT/NONE Poisson")
+    plasma3d.check_supported(cfg)
+
+
+def _step3d(cfg: PlasmaConfig, mesh: DeviceMesh, local, solve
+            ) -> Callable[[Plasma3DState], Plasma3DState]:
+    """A sharded 3-D step: local(f, g, Ex, Ey, Ez) -> (f, g, rho_q) on the
+    rank's block, then the sharded spectral solve `solve` + E under FFT,
+    or the NONE solver on the block (models/plasma3d._poisson_and_pack)."""
+    def step(state: Plasma3DState) -> Plasma3DState:
+        f, g, rho_q = local(state.f, state.g, state.Ex, state.Ey, state.Ez)
+        if cfg.poisson == PoissonSolver.FFT:
+            phi = solve(rho_q, mesh)
+            Ex, Ey, Ez = efield_periodic3d_sharded(phi, mesh)
+            return Plasma3DState(f=f, g=g, Ex=Ex, Ey=Ey, Ez=Ez, phi=phi,
+                                 step=state.step + 1)
+        return plasma3d._poisson_and_pack(cfg, state, f, g, rho_q)
+
+    return step
+
+
+def make_fused_sharded_step3d(cfg: PlasmaConfig, mesh: DeviceMesh
+                              ) -> Callable[[Plasma3DState], Plasma3DState]:
+    """The z-sharded 3-D step on an (n, 1) mesh: each step the block's edge
+    slices of f, g, Ex, Ey, Ez go to its dz neighbours (ring) and
+    collide_stream_halo3d runs on the block; NZ divisible by n, FFT or
+    NONE."""
+    (n,) = _axes3d(mesh, (AXIS_Z,), "3-D fused sharded step is 1-D "
+                   f"({AXIS_Z}) only; got nontrivial axes ")
+    if cfg.NZ % n:
+        raise ValueError(f"NZ={cfg.NZ} must be divisible by {n}")
+    _refuse_solver3d(cfg)
+    phys = _phys(cfg)
+
+    def local(*arrays):
+        up = ring_shift([a[..., -1:, :, :] for a in arrays], mesh, AXIS_Z, 1)
+        dn = ring_shift([a[..., :1, :, :] for a in arrays], mesh, AXIS_Z, -1)
+        return collide_stream_halo3d(*arrays, *up, *dn, **phys)
+
+    return _step3d(cfg, mesh, local, solve_fft3d_z)
+
+
+def make_fused_sharded_step3d_y(cfg: PlasmaConfig, mesh: DeviceMesh
+                                ) -> Callable[[Plasma3DState], Plasma3DState]:
+    """The y-sharded 3-D step on a (1, n) mesh: each step the block's edge
+    rows go to its dy neighbours and collide_stream_panel3d runs with them
+    as halo_rows; NY divisible by n with a panel height for NY/n (JAX's
+    rule: a multiple of 8), FFT or NONE."""
+    (n,) = _axes3d(mesh, (AXIS_Y,), "y-sharded 3-D fused step is 1-D "
+                   f"({AXIS_Y}) only; got nontrivial axes ")
+    if cfg.NY % n:
+        raise ValueError(f"NY={cfg.NY} must be divisible by {n}")
+    check_panel(cfg.NY // n, cfg.NX)
+    _refuse_solver3d(cfg)
+    phys = _phys(cfg)
+
+    def local(*arrays):
+        up = ring_shift([a[..., -1, :] for a in arrays], mesh, AXIS_Y, 1)
+        dn = ring_shift([a[..., 0, :] for a in arrays], mesh, AXIS_Y, -1)
+        return collide_stream_panel3d(*arrays, halo_rows=(*up, *dn), **phys)
+
+    return _step3d(cfg, mesh, local, solve_fft3d_y)
+
+
+def make_fused_sharded_step3d_yz(cfg: PlasmaConfig, mesh: DeviceMesh
+                                 ) -> Callable[[Plasma3DState], Plasma3DState]:
+    """The 3-D step on a (dz, dy) mesh of tiles: NZ divisible by dz, NY by
+    dy with a panel height for NY/dy, FFT or NONE.
+
+    The exchange has the JAX step's two hops: the block's edge slices along
+    dz and its edge rows along dy, then along dy the received slices' edge
+    rows, which are the (y, z)-diagonal neighbours' corner lines.
+    collide_stream_panel3d_zhalo runs on the block. An axis of size 1 sends
+    the block its own wrap."""
+    dz, dy = _axes3d(mesh, (AXIS_Z, AXIS_Y), "(dz, dy) 3-D fused step: "
+                     "unexpected nontrivial mesh axes ")
+    if cfg.NZ % dz:
+        raise ValueError(f"NZ={cfg.NZ} must be divisible by dz={dz}")
+    if cfg.NY % dy:
+        raise ValueError(f"NY={cfg.NY} must be divisible by dy={dy}")
+    check_panel(cfg.NY // dy, cfg.NX)
+    _refuse_solver3d(cfg)
+    phys = _phys(cfg)
+
+    def local(*arrays):
+        up_sl = ring_shift([a[..., -1, :, :] for a in arrays], mesh, AXIS_Z, 1)
+        dn_sl = ring_shift([a[..., 0, :, :] for a in arrays], mesh, AXIS_Z, -1)
+        # along dy: the block's edge rows, then the slices' (the corners)
+        ahead = ring_shift([a[..., -1, :] for a in (*arrays, *up_sl, *dn_sl)],
+                           mesh, AXIS_Y, 1)
+        behind = ring_shift([a[..., 0, :] for a in (*arrays, *up_sl, *dn_sl)],
+                            mesh, AXIS_Y, -1)
+        return collide_stream_panel3d_zhalo(
+            *arrays, (*up_sl, *dn_sl), (*ahead[:5], *behind[:5]),
+            (*ahead[5:10], *behind[5:10]), (*ahead[10:], *behind[10:]),
+            **phys)
+
+    return _step3d(cfg, mesh, local, solve_fft3d_yz)
+
+
+def pick_mesh3d(cfg: PlasmaConfig, n: int) -> Tuple[int, int]:
+    """The (dz, dy) mesh make_fused_sharded_step3d_auto runs n ranks on, in
+    the JAX package's order of preference: (n, 1), z-shards, when NZ
+    divides by n with >= 2 slices a shard; else (1, n), y-shards, when NY
+    divides by n with a panel height for NY/n; else the first (n // dy, dy)
+    tile mesh, dy ascending, that divides NZ (>= 2 slices a shard) and NY
+    (with a panel height). The JAX picker's VMEM tests are dropped: where
+    the full cross-section fails check_vmem3d and NZ divides, it takes
+    y-shards or tiles and this takes z-shards (the CUDA kernel takes any
+    cross-section); elsewhere the picks agree."""
+    if n < 2:
+        raise ValueError("auto 3-D sharding needs >= 2 devices")
+
+    def panel_ok(ny):
+        try:
+            check_panel(ny, cfg.NX)
+            return True
+        except ValueError:
+            return False
+
+    if cfg.NZ % n == 0 and cfg.NZ // n >= 2:
+        return n, 1
+    if cfg.NY % n == 0 and panel_ok(cfg.NY // n):
+        return 1, n
+    for dy in (d for d in range(1, n) if n % d == 0):
+        dz = n // dy
+        if cfg.NY % dy or cfg.NZ % dz or cfg.NZ // dz < 2:
+            continue
+        if panel_ok(cfg.NY // dy):
+            return dz, dy
+    raise ValueError(
+        f"no feasible 3-D decomposition of NZxNYxNX = "
+        f"{cfg.NZ}x{cfg.NY}x{cfg.NX} over {n} devices: an axis is "
+        f"indivisible or the per-shard cross-section has no panel height")
+
+
+def make_fused_sharded_step3d_auto(cfg: PlasmaConfig, n: int,
+                                   device_type: str = "cuda"):
+    """(step, mesh, shard_fn) for n ranks: the (dz, dy) mesh of pick_mesh3d
+    over the initialised default group, its step (z-shards on (n, 1),
+    y-shards on (1, n), tiles otherwise), and shard_fn(full state) -> this
+    rank's block (the counterpart of the JAX function's shardings)."""
+    shape = pick_mesh3d(cfg, n)
+    mesh = make_mesh3d(shape, device_type)
+    make = (make_fused_sharded_step3d if shape[1] == 1 else
+            make_fused_sharded_step3d_y if shape[0] == 1 else
+            make_fused_sharded_step3d_yz)
+    return make(cfg, mesh), mesh, lambda state: shard_state3d(state, mesh)
+
+
+def make_fused_sharded_multistep_rollout_3d(
+        cfg: PlasmaConfig, mesh: DeviceMesh, n: int
+) -> Callable[[Plasma3DState], Plasma3DState]:
+    """n steps of the z-sharded column in windows of K = cfg.multistep:
+    floor(n / K) windows of K steps and one of the remainder, on an (r, 1)
+    mesh. Each window sends the block's K edge slices of f, g and E to its
+    dz neighbours (ring), concatenates them around the block and runs
+    collide_stream3d k times on the extended (slices + 2K) volume; the
+    periodic wrap's error enters at the volume's ends and moves one slice a
+    step, so after k <= K steps the block [K:-K] is exact. A remainder
+    window runs on K-deep slabs too.
+
+    NONE only (E constant over a window): step 1 collides with the state's
+    E, later steps with 0 under the reference's kill quirk (E zeroed after
+    every window), else with the state's E. NZ must divide by r and K must
+    not exceed a shard's slices: one ring hop brings no deeper ghost. Any
+    K >= 1 (no alignment rule in z)."""
+    (r,) = _axes3d(mesh, (AXIS_Z,), "3-D sharded multistep is 1-D "
+                   f"({AXIS_Z}) only; got nontrivial axes ")
+    K = int(getattr(cfg, "multistep", 0))
+    if K <= 0:
+        raise ValueError(f"cfg.multistep must be >= 1, got {K}")
+    if cfg.poisson != PoissonSolver.NONE:
+        raise ValueError("3-D sharded multistep needs a window-constant E: "
+                         "the NONE solver only (FFT is a global per-step "
+                         "solve — use make_fused_sharded_step3d)")
+    if cfg.NZ % r:
+        raise ValueError(f"NZ={cfg.NZ} must be divisible by {r}")
+    slices = cfg.NZ // r
+    if K > slices:
+        raise ValueError(f"multistep K={K} exceeds z-slices/shard={slices}; "
+                         f"the one-hop ghost exchange needs K <= slices")
+    plasma3d.check_supported(cfg)
+    kill = cfg.compat.none_solver_kills_external_field
+    phys = _phys(cfg)
+    windows = [K] * (n // K) + ([n % K] if n % K else [])
+
+    def rollout(state: Plasma3DState) -> Plasma3DState:
+        f, g, E = state.f, state.g, (state.Ex, state.Ey, state.Ez)
+        for k in windows:
+            arrays = (f, g, *E)
+            up = ring_shift([a[..., -K:, :, :] for a in arrays], mesh, AXIS_Z,
+                            1)
+            dn = ring_shift([a[..., :K, :, :] for a in arrays], mesh, AXIS_Z,
+                            -1)
+            fe, ge, *Ee = [torch.cat(t, dim=-3) for t in zip(up, arrays, dn)]
+            for j in range(k):
+                if j == 1 and kill:
+                    Ee = [torch.zeros_like(t) for t in Ee]
+                fe, ge, _ = collide_stream3d(fe, ge, *Ee, **phys)
+            f = fe[..., K:-K, :, :].contiguous()
+            g = ge[..., K:-K, :, :].contiguous()
+            if kill:
+                E = tuple(torch.zeros_like(t) for t in E)
+        return Plasma3DState(f=f, g=g, Ex=E[0], Ey=E[1], Ez=E[2],
+                             phi=state.phi, step=state.step + n)
 
     return rollout

@@ -1,10 +1,12 @@
-"""The (dy, dx) device mesh over torch.distributed, and ring exchanges on
-its axes (counterpart of lbm_tpu/parallel/mesh.py, and of the
-jax.lax.ppermute rings of lbm_tpu/parallel/fused_sharded.py).
+"""The (dy, dx) device mesh of the 2-D lattice and the (dz, dy) mesh of the
+3-D column over torch.distributed, and ring exchanges on their axes
+(counterpart of lbm_tpu/parallel/mesh.py, of AXIS_Z in
+lbm_tpu/parallel/fused_sharded.py and of its jax.lax.ppermute rings).
 
 One process per device, launched by torchrun (or any launcher that sets
 RANK, WORLD_SIZE and LOCAL_RANK). Rank r owns block (r // nx, r % nx) of
-an (ny, nx) mesh: the row-major order of JAX's devices.reshape(ny, nx). On
+an (ny, nx) mesh, and block (r // dy, r % dy) of a (dz, dy) mesh: the
+row-major order of JAX's devices.reshape(ny, nx). On
 CUDA devices the group is NCCL, one device a rank (cuda:LOCAL_RANK); gloo
 is used only when the caller asks for the CPU.
 """
@@ -20,6 +22,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXIS_Y = "dy"
 AXIS_X = "dx"
+AXIS_Z = "dz"
 
 
 def factor_2d(n: int) -> Tuple[int, int]:
@@ -60,26 +63,40 @@ def init_distributed(device, init_method: Optional[str] = None,
     return device
 
 
+def _mesh(shape: Optional[Tuple[int, int]], names: Tuple[str, str],
+          device_type: str) -> DeviceMesh:
+    """A 2-D mesh over the initialised default group (shape None:
+    factor_2d of the world size)."""
+    if not dist.is_initialized():
+        raise RuntimeError("a device mesh needs an initialised process "
+                           "group (init_distributed)")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device mesh: device_type 'cuda' without a CUDA "
+                           "device")
+    n = dist.get_world_size()
+    shape = factor_2d(n) if shape is None else shape
+    if shape[0] * shape[1] != n:
+        raise ValueError(f"mesh shape {tuple(shape)} != {n} ranks")
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
+
+
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
               device_type: str = "cuda") -> DeviceMesh:
     """2-D mesh (AXIS_Y, AXIS_X) over the initialised default group; shape
     defaults to factor_2d(world size)."""
-    if not dist.is_initialized():
-        raise RuntimeError("make_mesh needs an initialised process group "
-                           "(init_distributed)")
-    if device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_mesh: device_type 'cuda' without a CUDA "
-                           "device")
-    n = dist.get_world_size()
-    ny, nx = factor_2d(n) if shape is None else shape
-    if ny * nx != n:
-        raise ValueError(f"mesh shape {(ny, nx)} != {n} ranks")
-    return init_device_mesh(device_type, (ny, nx),
-                            mesh_dim_names=(AXIS_Y, AXIS_X))
+    return _mesh(shape, (AXIS_Y, AXIS_X), device_type)
+
+
+def make_mesh3d(shape: Tuple[int, int], device_type: str = "cuda"
+                ) -> DeviceMesh:
+    """The 3-D column's (AXIS_Z, AXIS_Y) mesh of shape (dz, dy) over the
+    initialised default group: (n, 1) for a z-sharded column, (1, n) for a
+    y-sharded one, (dz, dy) for tiles."""
+    return _mesh(shape, (AXIS_Z, AXIS_Y), device_type)
 
 
 def mesh_shape(mesh: DeviceMesh) -> Tuple[int, int]:
-    """(ny, nx) of a (dy, dx) mesh."""
+    """(ny, nx) of a (dy, dx) mesh; (dz, dy) of a 3-D one."""
     return mesh.size(0), mesh.size(1)
 
 

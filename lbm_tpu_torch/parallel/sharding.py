@@ -1,7 +1,9 @@
-"""Block placement of the 2-D plasma state on a (dy, dx) mesh, and of the
-cavity state on a (dy, 1) mesh (counterpart of the placement half of
-lbm_tpu/parallel/sharding.py: validate_grid, state_shardings/shard_state,
-cavity_state_shardings/shard_cavity_state).
+"""Block placement of the 2-D plasma state on a (dy, dx) mesh, of the
+cavity state on a (dy, 1) mesh and of the 3-D column on a (dz, dy) mesh
+(counterpart of the placement half of lbm_tpu/parallel/sharding.py:
+validate_grid, state_shardings/shard_state,
+cavity_state_shardings/shard_cavity_state, and of the NamedShardings that
+lbm_tpu/parallel/fused_sharded.py's 3-D steps place their state with).
 
 Each rank holds its block of the (NY, NX) lattice: rows
 [by * NY/ny, (by + 1) * NY/ny) and columns [bx * NX/nx, (bx + 1) * NX/nx)
@@ -10,11 +12,14 @@ of the populations (3, 9, NY, NX) and of the fields (NY, NX), where
 this rank's block; gather_state all-gathers the blocks back into the full
 state on every rank (the tests and the CLI's outputs read it).
 shard_cavity_state and gather_cavity_state do the same for the cavity's
-(f, rho, ux, uy).
+(f, rho, ux, uy). A 3-D rank owns slices [bz * NZ/dz, (bz + 1) * NZ/dz) and
+rows [by * NY/dy, ...) of the column, NX whole, where (bz, by) = (rank //
+dy, rank % dy): shard_state3d and gather_state3d place and gather f, g,
+Ex, Ey, Ez and phi of a Plasma3DState.
 
 The JAX module's GSPMD steps (make_sharded_step for any solver and wall,
-make_sharded_step3d, make_sharded_cavity_step) hold no kernel and are not
-ported here; ROADMAP Queue 1 item 17 brings them.
+state_shardings3d/make_sharded_step3d, make_sharded_cavity_step) hold no
+kernel and are not ported here; ROADMAP Queue 1 item 17 brings them.
 """
 from __future__ import annotations
 
@@ -101,3 +106,46 @@ def gather_cavity_state(state, mesh: DeviceMesh):
     reads the centerlines, the Ghia check and the timing from it)."""
     return state._replace(**{k: _gather(getattr(state, k), mesh)
                              for k in CAVITY_FIELDS})
+
+
+PLASMA3D_FIELDS = ("f", "g", "Ex", "Ey", "Ez", "phi")
+
+
+def block3d(cfg, mesh: DeviceMesh, rank: int) -> Tuple[slice, slice]:
+    """(slices, rows) of the column that `rank` owns on a (dz, dy) mesh
+    (cfg duck-typed: NZ, NY)."""
+    dz, dy = mesh_shape(mesh)
+    if cfg.NZ % dz or cfg.NY % dy:
+        raise ValueError(f"grid NZ x NY = {cfg.NZ}x{cfg.NY} not divisible "
+                         f"by mesh {dz}x{dy}")
+    nz, ny = cfg.NZ // dz, cfg.NY // dy
+    bz, by = divmod(rank, dy)
+    return (slice(bz * nz, (bz + 1) * nz), slice(by * ny, (by + 1) * ny))
+
+
+def shard_state3d(state, mesh: DeviceMesh):
+    """This rank's block of a full Plasma3DState (copies, on the state's
+    device); the step counter is a host int and stays."""
+    NZ, NY, _ = state.Ex.shape
+    zs, ys = block3d(SimpleNamespace(NZ=NZ, NY=NY), mesh, dist.get_rank())
+    return state._replace(**{k: getattr(state, k)[..., zs, ys, :].contiguous()
+                             for k in PLASMA3D_FIELDS})
+
+
+def _gather3d(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    dz, dy = mesh_shape(mesh)
+    nz, ny = t.shape[-3], t.shape[-2]
+    grid = SimpleNamespace(NZ=nz * dz, NY=ny * dy)
+    parts = [torch.empty_like(t) for _ in range(dz * dy)]
+    dist.all_gather([_wire(p) for p in parts], _wire(t.contiguous()))
+    out = t.new_empty(t.shape[:-3] + (grid.NZ, grid.NY, t.shape[-1]))
+    for r, p in enumerate(parts):
+        zs, ys = block3d(grid, mesh, r)
+        out[..., zs, ys, :] = p
+    return out
+
+
+def gather_state3d(state, mesh: DeviceMesh):
+    """The full Plasma3DState from every rank's block, on every rank."""
+    return state._replace(**{k: _gather3d(getattr(state, k), mesh)
+                             for k in PLASMA3D_FIELDS})

@@ -1,9 +1,13 @@
-"""3-D plasma column CLI of the port: the single-device subset of
-scripts/run_plasma3d.py (BASELINE config #5).
+"""3-D plasma column CLI of the port: scripts/run_plasma3d.py without its
+checkpoints (BASELINE config #5).
 
     python scripts/run_plasma3d_torch.py                  # 64^2x64, 50 steps
     python scripts/run_plasma3d_torch.py --n 128 --nz 128 --storage bf16
     python scripts/run_plasma3d_torch.py --device cpu --n 16 --nz 8 --steps 3
+    torchrun --nproc-per-node 2 scripts/run_plasma3d_torch.py --device cpu \
+        --shard 2 --n 16 --nz 8 --steps 3                 # 2 ranks, gloo
+    torchrun --nproc-per-node 2 scripts/run_plasma3d_torch.py --shard 2 \
+        --multistep 8 --poisson NONE                      # K-slice windows
 
 Defaults: FFT Poisson, periodic, --backend fused (the CUDA collide+stream
 kernel) on --device cuda, f32 with neutral-delta storage (--f64 turns it
@@ -12,8 +16,16 @@ only an explicit --device cpu runs on the CPU, with the plain backend.
 --slice-every N writes the z-midplane rho_e and rho_q every N steps as
 slice_<step>.npz (PNG rendering waits for the port's io/colormap, ROADMAP
 Queue 1 item 13). The timing CSV row goes to <out>/simulation_time_3d.csv.
-main(argv) returns a summary dict (the state and the kernel's launch count
-included).
+--shard N runs under torchrun --nproc-per-node N: each rank holds one block
+of the column on the mesh parallel.fused_sharded.make_fused_sharded_step3d_auto
+picks (z-shards, y-shards or (dz, dy) tiles), on cuda:LOCAL_RANK over NCCL,
+or over gloo with --device cpu (the kernels' plain versions); with
+--multistep K (and --poisson NONE) the column is z-sharded over N ranks and
+advances in K-step windows of K-slice ghost slabs
+(make_fused_sharded_multistep_rollout_3d; --shard 1 is allowed), slices
+then sample at window boundaries. Rank 0 gathers the state and alone writes
+the slices and the CSV. main(argv) returns a summary dict (the state and
+each kernel's launch count included).
 """
 from __future__ import annotations
 
@@ -24,18 +36,17 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import config as C
 from .io import timing
 from .kernels import fused_step3d
 from .models import plasma3d
+from .parallel import fused_sharded, mesh as pmesh, sharding
 
 # flags of scripts/run_plasma3d.py that the port refuses, with the ROADMAP
 # item that brings each
 _REFUSED = {
-    "shard": "--shard: 3-D sharding is ROADMAP Queue 1 item 14",
-    "multistep": "--multistep: 3-D temporal blocking is the multi-device "
-                 "K-slab protocol, ROADMAP Queue 1 item 14",
     "checkpoint_every": "--checkpoint-every: 3-D checkpoints are ROADMAP "
                         "Queue 1 item 13",
     "resume": "--resume: 3-D checkpoints are ROADMAP Queue 1 item 13",
@@ -67,9 +78,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                                  "torch_3d"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
-    p.add_argument("--shard", type=int, default=0, help="refused (Q1 #14)")
-    p.add_argument("--multistep", type=int, default=0,
-                   help="refused (Q1 #14)")
+    p.add_argument("--shard", type=int, default=0, metavar="N",
+                   help="shard the column over N ranks (run under torchrun "
+                        "--nproc-per-node N): z-shards, y-shards or (dz, dy) "
+                        "tiles, as parallel.fused_sharded."
+                        "make_fused_sharded_step3d_auto picks")
+    p.add_argument("--multistep", type=int, default=0, metavar="K",
+                   help="with --shard N and --poisson NONE: K steps a "
+                        "window on an (N, 1) dz mesh, one exchange of "
+                        "K-slice ghost slabs a window (parallel."
+                        "fused_sharded.make_fused_sharded_multistep_"
+                        "rollout_3d); slices sample at window boundaries")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="refused (Q1 #13)")
     p.add_argument("--resume", default=None, help="refused (Q1 #13)")
@@ -82,10 +101,21 @@ def build_config(args: argparse.Namespace) -> C.PlasmaConfig:
             raise SystemExit(msg)
     if args.storage == "bf16" and args.f64:
         raise SystemExit("--storage bf16 is an f32 fast mode (drop --f64)")
+    if args.multistep:
+        # 3-D temporal blocking is the multi-device K-slab protocol only
+        if not args.shard:
+            raise SystemExit("--multistep is multi-chip only in 3-D: add "
+                             "--shard N")
+        if args.poisson != "NONE":
+            raise SystemExit("--multistep (3-D) needs --poisson NONE "
+                             "(window-constant E; FFT is a global "
+                             "per-step solve)")
     try:
         return dataclasses.replace(
             C.preset_plasma_3d(args.n, args.nz), nsteps=args.steps,
-            poisson=C.PoissonSolver[args.poisson], backend=args.backend,
+            poisson=C.PoissonSolver[args.poisson],
+            backend="fused" if args.multistep else args.backend,
+            multistep=args.multistep,
             dtype=torch.float64 if args.f64 else torch.float32,
             storage=args.storage,
             neutral_delta=(args.neutral_delta if args.neutral_delta
@@ -105,6 +135,12 @@ def write_slice(path: str, cfg: C.PlasmaConfig,
              rho_q=mac.rho_q[zmid].double().cpu().numpy())
 
 
+def launch_counts() -> dict:
+    """The 3-D kernels' launches so far, by the TPU kernels' names."""
+    return {"collide_stream3d": fused_step3d.LAUNCHES,
+            **fused_step3d.HALO_LAUNCHES}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -113,51 +149,117 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             raise RuntimeError("--device cuda: no CUDA device is available "
                                "(pass --device cpu to run on the CPU)")
     elif device.type == "cpu":
-        if args.backend != "plain":
+        # under --shard the kernels' plain versions run on CPU tensors
+        if args.backend != "plain" and not args.shard:
             print(f"--device cpu: the {args.backend} backend's kernel needs "
                   f"a GPU, using the plain backend")
             args.backend = "plain"
     else:
         raise SystemExit(f"--device {args.device}: want cuda[:N] or cpu")
     cfg = build_config(args)
+    if args.shard:
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if world != args.shard:
+            raise SystemExit(f"--shard {args.shard}: the world has {world} "
+                             f"ranks; run under torchrun --nproc-per-node "
+                             f"{args.shard}")
+        if not cfg.multistep:
+            try:
+                fused_sharded.pick_mesh3d(cfg, args.shard)
+            except ValueError as e:
+                raise SystemExit(f"--shard: {e}")
+    own_group = bool(args.shard) and not dist.is_initialized()
+    try:
+        return _run(args, cfg, device)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
-    os.makedirs(args.out, exist_ok=True)
-    state = plasma3d.init_state(cfg, device)
-    step = plasma3d.make_step(cfg)
-    launches0 = fused_step3d.LAUNCHES
+
+def _run(args: argparse.Namespace, cfg: C.PlasmaConfig,
+         device: torch.device) -> dict:
+    stride = cfg.multistep or 1
+    m = None
+    if args.shard:
+        device = pmesh.init_distributed(device)
+        if cfg.multistep:
+            m = pmesh.make_mesh3d((args.shard, 1), device.type)
+            try:
+                rollouts = {
+                    k: fused_sharded.make_fused_sharded_multistep_rollout_3d(
+                        cfg, m, k)
+                    for k in {stride, cfg.nsteps % stride} if k}
+            except ValueError as e:
+                raise SystemExit(f"--shard --multistep: {e}")
+            where = (f"sharded 3-D multistep (K={stride}-slab ghosts) over "
+                     f"{args.shard}-device dz mesh")
+        else:
+            step, m, _ = fused_sharded.make_fused_sharded_step3d_auto(
+                cfg, args.shard, device.type)
+            rollouts = {1: step}
+            where = (f"sharded over mesh "
+                     f"{dict(zip(m.mesh_dim_names, m.shape))}")
+        # each rank builds the initial state and keeps its block
+        state = sharding.shard_state3d(plasma3d.init_state(cfg, device), m)
+    else:
+        state = plasma3d.init_state(cfg, device)
+        rollouts = {1: plasma3d.make_step(cfg)}
+    rank0 = m is None or dist.get_rank() == 0
+    if rank0:
+        os.makedirs(args.out, exist_ok=True)
+        if m is not None:
+            print(where)
+    launches0 = launch_counts()
 
     timer = timing.StepTimer(cfg.NX, cfg.NY * cfg.NZ)
     timer.start()
-    for t in range(cfg.nsteps):
-        state = step(state)
-        timer.tick()
-        if args.slice_every and (t + 1) % args.slice_every == 0:
-            write_slice(os.path.join(args.out, f"slice_{t + 1:05d}.npz"),
-                        cfg, state)
+    for t in range(0, cfg.nsteps, stride):
+        k = min(stride, cfg.nsteps - t)
+        state = rollouts[k](state)
+        timer.tick(k)
+        if args.slice_every and (t + k) % args.slice_every == 0:
+            full = state if m is None else sharding.gather_state3d(state, m)
+            if rank0:
+                write_slice(os.path.join(args.out,
+                                         f"slice_{t + k:05d}.npz"), cfg, full)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall_ms = timer.wall_s * 1000
+    launches = {k: n - launches0[k] for k, n in launch_counts().items()}
+    if m is not None:
+        state = sharding.gather_state3d(state, m)
+        n_devices = dist.get_world_size()
+    else:
+        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
 
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    timing.append_timing_csv(
-        os.path.join(args.out, "simulation_time_3d.csv"),
-        NX=cfg.NX, NY=cfg.NY * cfg.NZ, nsteps=cfg.nsteps,
-        n_devices=n_devices, poisson=cfg.poisson.value, bc=0,
-        wall_ms=wall_ms)
+    if rank0:
+        timing.append_timing_csv(
+            os.path.join(args.out, "simulation_time_3d.csv"),
+            NX=cfg.NX, NY=cfg.NY * cfg.NZ, nsteps=cfg.nsteps,
+            n_devices=n_devices, poisson=cfg.poisson.value, bc=0,
+            wall_ms=wall_ms)
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (state.f, state.g, state.Ex, state.Ey, state.Ez))
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
-    launches = fused_step3d.LAUNCHES - launches0
-    print(f"3D column done: {cfg.NX}^2x{cfg.NZ}, {cfg.nsteps} steps, "
-          f"{wall_ms:.0f} ms ({timer.mlups:.2f} MLUPS) on {device_name}, "
-          f"backend {cfg.backend}, poisson {cfg.poisson.name}, storage "
-          f"{cfg.storage}, {cfg.dtype}, neutral delta {cfg.neutral_delta}; "
-          f"collide_stream3d launches {launches}")
-    return dict(NX=cfg.NX, NY=cfg.NY, NZ=cfg.NZ, steps=cfg.nsteps,
-                wall_ms=wall_ms, mlups=timer.mlups, device=device_name,
-                backend=cfg.backend, poisson=cfg.poisson.name,
-                storage=cfg.storage, dtype=str(cfg.dtype),
-                neutral_delta=cfg.neutral_delta,
-                launches={"collide_stream3d": launches}, finite=finite,
-                state=state)
+    summary = dict(NX=cfg.NX, NY=cfg.NY, NZ=cfg.NZ, steps=cfg.nsteps,
+                   wall_ms=wall_ms, mlups=timer.mlups, device=device_name,
+                   backend=cfg.backend, poisson=cfg.poisson.name,
+                   storage=cfg.storage, dtype=str(cfg.dtype),
+                   neutral_delta=cfg.neutral_delta, multistep=cfg.multistep,
+                   n_devices=n_devices,
+                   mesh=None if m is None else dict(zip(m.mesh_dim_names,
+                                                        m.shape)),
+                   launches=launches, finite=finite, state=state)
+    if rank0:
+        print(f"3D column done: {cfg.NX}^2x{cfg.NZ}, {cfg.nsteps} steps, "
+              f"{wall_ms:.0f} ms ({timer.mlups:.2f} MLUPS) on {device_name}, "
+              f"backend {cfg.backend}, poisson {cfg.poisson.name}, storage "
+              f"{cfg.storage}, {cfg.dtype}, neutral delta "
+              f"{cfg.neutral_delta}"
+              + (f", multistep {cfg.multistep}" if cfg.multistep else "")
+              + (f"; {n_devices} ranks, mesh {summary['mesh']}"
+                 if m is not None else "")
+              + "; kernel launches "
+              + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    return summary

@@ -23,6 +23,17 @@ collide_stream_halo2d_reference (a tile) bit for bit, at an 8x16 shard and
 a ragged 13x11 one that wraps around the grid's corner (chip_smoke.py phase
 10a holds the CUDA build).
 
+lbm_tpu_torch/kernels/csrc/halo3d_site.cuh holds the per-site work of the
+3-D halo kernel (csrc/fused_step3d.cu's halo entry): which strip a site of
+a shard's extended block reads (the shard, a slice, a row or a corner
+line), with which plane stride, and which of its pushes land in the shard.
+A loop over the extended block must equal fused_step3d.halo3d_reference
+bit for bit on a z-shard, a y-shard, a (dz, dy) tile and a tile that is
+the whole grid (its strips the grid's own wrap), in f64 and bf16 storage;
+and copies of the header with one line changed (the corner line taken,
+the axis that wraps, a strip's plane stride) must fail that (chip_smoke.py
+phase 12a holds the CUDA build).
+
 lbm_tpu_torch/kernels/csrc/cavity_site.cuh holds the per-site work of the
 cavity kernels (csrc/fused_cavity.cu): where a halo row comes from (a
 strip, the block's other end, or nowhere behind a wall), the collision, the
@@ -173,9 +184,11 @@ extern "C" int host_collide_stream_halo(int mode, int delta,
 """
 
 
-def _build_host(tmp_path_factory, name, source, stubs):
-    """Build `source` with the host's C++ compiler against csrc/ (and the
-    header stand-ins) into a library; skip without a compiler."""
+def _build_host(tmp_path_factory, name, source, stubs, csrc=CSRC,
+                flags=()):
+    """Build `source` with the host's C++ compiler against the headers in
+    `csrc` (and the header stand-ins) into a library; skip without a
+    compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the site code with")
@@ -186,8 +199,8 @@ def _build_host(tmp_path_factory, name, source, stubs):
     src.write_text(source)
     r = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
                         "-fno-fast-math", "-fPIC", "-shared",
-                        "-Wno-unknown-pragmas", f"-I{d}", f"-I{CSRC}",
-                        str(src), "-o", str(lib)],
+                        "-Wno-unknown-pragmas", *flags, f"-I{d}",
+                        f"-I{csrc}", str(src), "-o", str(lib)],
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     return ctypes.CDLL(str(lib))
@@ -321,6 +334,143 @@ def test_halo_site_code_matches_plain_version_bitwise(host_kernel, cut,
             assert torch.equal(a, b), (
                 f"{storage} {dtype} delta={delta} {name}: "
                 f"{int((a != b).sum())} of {a.numel()} elements differ")
+
+
+_HALO3D_HOST = r"""
+#include "halo3d_site.cuh"
+
+template <typename S, typename T, bool DELTA, bool FAST>
+void run_halo3d(const void* const* ptr, void* fo, void* go, void* rq,
+                const Halo3Geom& gm, const HostParams& hp) {
+  const Params<T> p = cast_params<T>(hp);
+  Src3<S, T> src[9];
+  for (int k = 0; k < 9; ++k)
+    src[k] = {static_cast<const S*>(ptr[5 * k]),
+              static_cast<const S*>(ptr[5 * k + 1]),
+              static_cast<const T*>(ptr[5 * k + 2]),
+              static_cast<const T*>(ptr[5 * k + 3]),
+              static_cast<const T*>(ptr[5 * k + 4])};
+  const Halo3In<S, T> in{src[0], src[1], src[2], src[3], src[4],
+                         src[5], src[6], src[7], src[8]};
+  for (int64_t site = 0; site < halo3d_sites(gm); ++site)
+    collide_stream_halo3d_site<S, T, DELTA, FAST>(
+        in, static_cast<S*>(fo), static_cast<S*>(go), static_cast<T*>(rq),
+        gm, site, p);
+}
+
+#define RUN_HALO3D(S, T, FAST)                                       \
+  (delta ? run_halo3d<S, T, true, FAST>(ptr, fo, go, rq, gm, *hp)   \
+         : run_halo3d<S, T, false, FAST>(ptr, fo, go, rq, gm, *hp))
+
+extern "C" int host_collide_stream_halo3d(int mode, int delta,
+                                          const void* const* ptr, void* fo,
+                                          void* go, void* rq,
+                                          const int* geom,
+                                          const HostParams* hp) {
+  const Halo3Geom gm{geom[0], geom[1], geom[2], geom[3], geom[4]};
+  if (mode == 0) RUN_HALO3D(double, double, false);
+#ifndef F64_ONLY
+  else RUN_HALO3D(__nv_bfloat16, float, true);
+#endif
+  return 0;
+}
+"""
+
+
+def _host_halo3d(tmp_path_factory, name, csrc=CSRC, flags=()):
+    so = _build_host(tmp_path_factory, name, _HALO3D_HOST, _STUBS, csrc,
+                     flags)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    so.host_collide_stream_halo3d.argtypes = [ci, ci, *[vp] * 6]
+    so.host_collide_stream_halo3d.restype = ci
+    return so
+
+
+@pytest.fixture(scope="module")
+def host_halo3d(tmp_path_factory):
+    return _host_halo3d(tmp_path_factory, "host_halo3d")
+
+
+# (slices, rows) of a 6x12x6 grid (NZ x NY x NX), None for an axis that
+# stays whole and wraps: a z-shard, a y-shard, a tile across the grid's
+# corner, and the whole grid as a tile; NZl != NYl on every shard, so a
+# strip read with another strip's plane stride shows
+_HALO3D_CUTS = {"z-shard": (slice(2, 5), None),
+                "y-shard": (None, slice(3, 8)),
+                "tile": (slice(4, 7), slice(9, 14)),
+                "whole-tile": (slice(0, 6), slice(0, 12))}
+_HALO3D_MODES = [(torch.float64, "native", False),
+                 (torch.float64, "native", True),
+                 (torch.float32, "bf16", True)]
+
+
+def _halo3d_mismatches(so, modes):
+    """[(mode, cut, output)] where the host build differs from
+    halo3d_reference."""
+    bad = []
+    for dtype, storage, delta in modes:
+        cfg = PlasmaConfig(NX=6, NY=12, NZ=6, dtype=dtype, storage=storage,
+                           neutral_delta=delta)
+        u = cfg.units()
+        phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
+                    m_i=u.m_i, cs2=u.cs2, kb=u.kb,
+                    neutral_ref=u.rho_n_init if delta else 0.0)
+        st = _seeded(cfg, 6126)
+        arrays = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+        for cut, (zs, ys) in _HALO3D_CUTS.items():
+            shard, zhalo, yrows, corners = fused_step3d.halo_inputs3d(
+                arrays, zs, ys)
+            want = fused_step3d.halo3d_reference(shard, zhalo, yrows,
+                                                 corners, **phys)
+            groups = [shard, *(zhalo or (None,) * 2),
+                      *(yrows or (None,) * 2), *(corners or (None,) * 4)]
+            tensors = [t for grp in groups for t in (grp or (None,) * 5)]
+            ptrs = (ctypes.c_void_p * 45)(
+                *(None if t is None else t.data_ptr() for t in tensors))
+            geom = (ctypes.c_int * 5)(*shard[2].shape, int(zhalo is not None),
+                                      int(yrows is not None))
+            got = [torch.empty_like(w) for w in want]
+            hp = host_params(**phys)
+            so.host_collide_stream_halo3d(
+                _MODES[(shard[0].dtype, dtype)], int(delta), ptrs,
+                *(t.data_ptr() for t in got), geom, ctypes.addressof(hp))
+            bad += [(f"{storage} {dtype} delta={delta}", cut, name)
+                    for name, a, b in zip(("f", "g", "rho_q"), got, want)
+                    if not torch.equal(a, b)]
+    return bad
+
+
+def test_halo3d_site_code_matches_plain_versions_bitwise(host_halo3d):
+    """csrc/halo3d_site.cuh on every geometry against halo3d_reference (the
+    plain versions of collide_stream_halo3d, _panel3d with halo_rows and
+    _panel3d_zhalo), bit for bit."""
+    assert _halo3d_mismatches(host_halo3d, _HALO3D_MODES) == []
+
+
+# one-line changes of halo3d_site.cuh, each of which the bitwise hold must
+# catch: (what it breaks, the line as it is, the line changed)
+_HALO3D_MUTATIONS = {
+    "corner row": ("src = z < 0 ? (y < 0 ? in.up_above : in.up_below)",
+                   "src = z < 0 ? (y < 0 ? in.up_below : in.up_above)"),
+    "wrap axis": ("        if (gm.yh) {", "        if (gm.zh) {"),
+    "strip stride": ("    vol = static_cast<int64_t>(NZ) * NX;",
+                     "    vol = static_cast<int64_t>(NY) * NX;"),
+}
+
+
+@pytest.mark.parametrize("what", list(_HALO3D_MUTATIONS))
+def test_halo3d_site_code_mutations_fail(tmp_path_factory, what):
+    before, after = _HALO3D_MUTATIONS[what]
+    csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_"))
+    for header in CSRC.glob("*.cuh"):
+        text = header.read_text()
+        if header.name == "halo3d_site.cuh":
+            assert text.count(before) == 1, f"{what}: line not found"
+            text = text.replace(before, after)
+        (csrc / header.name).write_text(text)
+    so = _host_halo3d(tmp_path_factory, "mutant", csrc, ["-DF64_ONLY"])
+    assert _halo3d_mismatches(so, _HALO3D_MODES[:2]), (
+        f"the '{what}' mutation passed the bitwise hold")
 
 
 _CAVITY_HOST = r"""

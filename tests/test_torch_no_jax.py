@@ -1,6 +1,6 @@
 """lbm_tpu_torch imports and runs without JAX (the GPU machine has none):
 every module, the 2-D, multistep, debug-dump, cavity and 3-D CLIs, and the
-sharded cavity CLI on a one-rank gloo group."""
+sharded cavity and 3-D window CLIs on a one-rank gloo group."""
 import os
 import subprocess
 import sys
@@ -49,12 +49,16 @@ _SCRIPT = textwrap.dedent("""
                            "--steps", "3", "--out",
                            sys.argv[1] + "/shard"] + flags)
         assert out["finite"] and out["state"].step == 3, out
+    out = plasma3d_main(["--device", "cpu", "--shard", "1", "--multistep",
+                         "2", "--poisson", "NONE", "--n", "8", "--nz", "4",
+                         "--steps", "3", "--out", sys.argv[1] + "/3d_shard"])
+    assert out["finite"] and out["state"].step == 3, out
     dist.destroy_process_group()
     for m in ("ops.d3", "models.plasma3d", "kernels.fused_step3d",
               "run_plasma3d", "kernels.fft_tpu", "models.plasma_staged",
               "io.debug_dump", "parallel.mesh", "parallel.sharding",
               "parallel.poisson", "parallel.fused_sharded",
-              "kernels.fused_cavity", "run_cavity"):
+              "kernels.fused_cavity", "run_cavity", "kernels.fused_panel3d"):
         assert "lbm_tpu_torch." + m in sys.modules, m
     assert not any(n == "lbm_tpu" or n.startswith(("lbm_tpu.", "jax."))
                    for n in sys.modules), "JAX or lbm_tpu was imported"

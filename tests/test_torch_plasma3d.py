@@ -343,8 +343,8 @@ def test_cli_writes_timing_and_slice(tmp_path, monkeypatch, capsys):
     summary = run_plasma3d.main(["--device", "cpu", "--n", "16", "--nz", "8",
                                  "--steps", "3", "--slice-every", "0",
                                  "--out", str(tmp_path / "again")])
-    assert summary["finite"] and summary["launches"] == {
-        "collide_stream3d": 0}
+    assert summary["finite"] and summary["launches"] == dict.fromkeys(
+        ["collide_stream3d", *fused_step3d.HALO_LAUNCHES], 0)
     mac = tp3.compute_macros(tcfg.preset_plasma_3d(16, 8), summary["state"])
     np.testing.assert_array_equal(sl["rho_e"], mac.rho[0, 4].numpy())
     np.testing.assert_array_equal(sl["rho_q"], mac.rho_q[4].numpy())
@@ -352,8 +352,8 @@ def test_cli_writes_timing_and_slice(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags, message", [
     (["--backend", "pallas"], None),
-    (["--multistep", "4"], "Queue 1 item 14"),
-    (["--shard", "2"], "Queue 1 item 14"),
+    (["--multistep", "4"], "multi-chip only in 3-D"),
+    (["--shard", "2"], "torchrun --nproc-per-node 2"),
     (["--checkpoint-every", "5"], "Queue 1 item 13"),
     (["--resume", "ckpt.npz"], "Queue 1 item 13"),
     (["--storage", "bf16", "--f64"], "drop --f64")])
@@ -376,7 +376,7 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
 @pytest.mark.parametrize("fields, error, match", [
     ({"backend": "pallas"}, ValueError, "pallas"),
     ({"backend": "fused", "multistep": 4,
-      "poisson": tcfg.PoissonSolver.NONE}, NotImplementedError, "item 14"),
+      "poisson": tcfg.PoissonSolver.NONE}, ValueError, "multi-chip only"),
     ({"poisson": tcfg.PoissonSolver.SOR}, ValueError, "FFT/NONE"),
     ({"bc": tcfg.BC.BOUNCE_BACK}, ValueError, "periodic"),
     ({"NZ": 0}, ValueError, "NZ > 0")])

@@ -1,6 +1,6 @@
-"""Rank bodies of tests/test_torch_sharded.py and
-tests/test_torch_cavity_sharded.py (not collected), and spawn(), which runs
-them.
+"""Rank bodies of tests/test_torch_sharded.py,
+tests/test_torch_cavity_sharded.py and tests/test_torch_sharded3d.py (not
+collected), and spawn(), which runs them.
 
     python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
 
@@ -10,10 +10,12 @@ OUT_DIR/result.pt. It imports torch and lbm_tpu_torch only, never JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -23,7 +25,7 @@ sys.path.insert(0, REPO)
 
 from lbm_tpu_torch.config import (CavityConfig, PlasmaConfig,  # noqa: E402
                                   PoissonSolver)
-from lbm_tpu_torch.models import cavity, plasma  # noqa: E402
+from lbm_tpu_torch.models import cavity, plasma, plasma3d  # noqa: E402
 from lbm_tpu_torch.parallel import fused_sharded, mesh, sharding  # noqa: E402
 
 
@@ -188,8 +190,120 @@ def cavity_runs(out_dir: str) -> None:
         torch.save(results, os.path.join(out_dir, "result.pt"))
 
 
+# the 3-D column, by world size: (label, step, mesh shape, NZ, NY, NX,
+# solver, dtype, storage, neutral_delta); step "auto" takes
+# make_fused_sharded_step3d_auto's pick (its mesh is saved)
+STEP3D_CASES = {
+    4: [("z4_fft", "z", (4, 1), 8, 16, 8, "FFT", F64, "native", False),
+        ("z4_none", "z", (4, 1), 8, 16, 8, "NONE", F64, "native", False),
+        ("y4_fft", "y", (1, 4), 4, 32, 8, "FFT", F64, "native", False),
+        ("y4_none_bf16", "y", (1, 4), 4, 32, 8, "NONE", F32, "bf16", True),
+        ("yz22_fft", "yz", (2, 2), 4, 16, 8, "FFT", F64, "native", False),
+        ("yz22_none", "yz", (2, 2), 4, 16, 8, "NONE", F64, "native", False),
+        ("auto4_fft", "auto", None, 4, 16, 8, "FFT", F64, "native", False)],
+    2: [("z2_none_f32", "z", (2, 1), 8, 16, 8, "NONE", F32, "native", True),
+        ("y2_fft", "y", (1, 2), 4, 16, 8, "FFT", F64, "native", False),
+        ("yz12_fft", "yz", (1, 2), 4, 16, 8, "FFT", F64, "native", False),
+        ("yz21_none_bf16", "yz", (2, 1), 4, 16, 8, "NONE", F32, "bf16",
+         True),
+        ("auto2_fft", "auto", None, 8, 16, 8, "FFT", F64, "native", False)],
+}
+# the 3-D windows on a (world, 1) mesh: (label, NZ, K, steps, kill)
+WINDOW3D_CASES = {
+    4: [("k1_kill", 12, 1, 3, True), ("k3_keep", 12, 3, 7, False)],
+    2: [("k3_kill", 8, 3, 7, True), ("k1_keep", 8, 1, 3, False)],
+}
+STEPS3D = 3
+# the sharded 3-D CLI's runs on two ranks: (label, flags)
+CLI3D = [("fft", ["--steps", "3", "--f64", "--slice-every", "3"]),
+         ("window", ["--steps", "5", "--multistep", "2", "--poisson", "NONE",
+                     "--slice-every", "4"])]
+CLI3D_ARGS = ["--device", "cpu", "--n", "16", "--nz", "8"]
+
+
+def config3d(NZ, NY, NX, solver, dtype, storage, delta, K=0, kill=True
+             ) -> PlasmaConfig:
+    cfg = PlasmaConfig(NX=NX, NY=NY, NZ=NZ, dtype=dtype, storage=storage,
+                       neutral_delta=delta, poisson=PoissonSolver[solver],
+                       backend="fused" if K else "plain", multistep=K)
+    return dataclasses.replace(cfg, compat=dataclasses.replace(
+        cfg.compat, none_solver_kills_external_field=kill))
+
+
+def seeded_state3d(cfg: PlasmaConfig, label: str):
+    """The initial column with a relative perturbation of ~1e-3 of f, g and
+    Ex and an additive one of Ey and Ez (numpy, float64, seeded from the
+    case's label), so that nothing is uniform in z."""
+    state = plasma3d.init_state(cfg, "cpu")
+    rng = np.random.default_rng([ord(c) for c in label])
+    e = 1e-3 * float(state.Ex.abs().max())
+
+    def perturb(t, additive=0.0):
+        a = t.double().numpy()
+        noise = rng.standard_normal(a.shape)
+        return torch.from_numpy(a * (1 + 1e-3 * noise) + additive * noise
+                                ).to(t.dtype).contiguous()
+
+    return state._replace(f=perturb(state.f), g=perturb(state.g),
+                          Ex=perturb(state.Ex), Ey=perturb(state.Ey, e),
+                          Ez=perturb(state.Ez, e))
+
+
+STEP3D_MAKERS = {"z": "make_fused_sharded_step3d",
+                 "y": "make_fused_sharded_step3d_y",
+                 "yz": "make_fused_sharded_step3d_yz"}
+
+
+def column_runs(out_dir: str) -> None:
+    """Every STEP3D_CASES and WINDOW3D_CASES case of this world size from
+    its seeded state through its sharded path; on two ranks also the 3-D
+    CLI's refusals and its CLI3D runs. Rank 0 saves the gathered states."""
+    from lbm_tpu_torch import run_plasma3d
+
+    n = dist.get_world_size()
+    results = {}
+    for label, kind, shape, *grid in STEP3D_CASES[n]:
+        cfg = config3d(*grid)
+        if kind == "auto":
+            step, m, shard_fn = fused_sharded.make_fused_sharded_step3d_auto(
+                cfg, n, "cpu")
+            results[label + "_mesh"] = tuple(m.shape)
+        else:
+            m = mesh.make_mesh3d(shape, "cpu")
+            step = getattr(fused_sharded, STEP3D_MAKERS[kind])(cfg, m)
+        state = sharding.shard_state3d(seeded_state3d(cfg, label), m)
+        for _ in range(STEPS3D):
+            state = step(state)
+        results[label] = sharding.gather_state3d(state, m)
+    m = mesh.make_mesh3d((n, 1), "cpu")
+    for label, NZ, K, steps, kill in WINDOW3D_CASES[n]:
+        cfg = config3d(NZ, 8, 8, "NONE", F64, "native", False, K, kill)
+        state = sharding.shard_state3d(seeded_state3d(cfg, label), m)
+        state = fused_sharded.make_fused_sharded_multistep_rollout_3d(
+            cfg, m, steps)(state)
+        results["window_" + label] = sharding.gather_state3d(state, m)
+    if n == 2:
+        for flags in (["--shard", "3"],
+                      ["--shard", "2", "--multistep", "5", "--poisson",
+                       "NONE"]):
+            try:
+                run_plasma3d.main([*CLI3D_ARGS, *flags, "--out",
+                                   os.path.join(out_dir, "refused")])
+                results["refused", flags[1]] = None
+            except SystemExit as e:
+                results["refused", flags[1]] = str(e)
+        for label, flags in CLI3D:
+            summary = run_plasma3d.main(
+                [*CLI3D_ARGS, "--shard", "2", *flags, "--out",
+                 os.path.join(out_dir, "cli3d_" + label)])
+            results["cli3d_" + label] = {k: summary[k] for k in (
+                "launches", "state", "n_devices", "mesh", "finite")}
+    if dist.get_rank() == 0:
+        torch.save(results, os.path.join(out_dir, "result.pt"))
+
+
 SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli,
-             "cavity": cavity_runs}
+             "cavity": cavity_runs, "column": column_runs}
 
 
 def main(argv) -> None:
