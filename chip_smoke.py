@@ -154,6 +154,29 @@ phase fails:
      z, y and yz steps over a world of one beside the single-device step,
      the z step's sharded solve + E beside rfftn's; the K = 8 NONE window
      at 256^3 beside the single-device step.
+  13a. the gated window kernel (collide_stream_multistep_gated) bitwise
+     against its plain version on a 37-row band of a seeded warm 74x53
+     bounce-back state extended by K = 1, 4, 17 rows a side, with the walls
+     at (K, K+R-1), (K, -1), (-1, K+R-1) and (-1, -1), NONE with the kill
+     quirk on and off and FFT + bounce-back, in f64, f32 and bf16 + delta;
+     and on every y-shard of 2/4/8-way cuts of 512^2 f64 (NONE, FFT) and
+     2048^2 bf16 + delta (NONE), K = 8, bitwise against the whole-grid
+     bounce-back window at the shard's rows, and at walls (0, NY-1) on the
+     whole grid;
+  13b. the sharded windows on a one-rank NCCL group: the y-shard rollout
+     under NONE periodic, NONE and FFT bounce-back and the 2-D rollout, 512^2
+     f32 + delta, 20 steps with K = 8, bitwise equal to the single-device
+     window rollout with 3 launches of their kernel; (2, 2) and (2, 4) tiles
+     of 512^2, each extended by K-deep slabs and corners, bitwise against the
+     whole-grid window; torchrun --nproc-per-node 1 of the plasma CLI with
+     --shard 1 --multistep 8 --poisson NONE --bc bounceback (200^2, 200
+     steps): 25 gated launches, its 19 probe series bitwise equal to the
+     single-device CLI's;
+  13c. the gated window at 2048^2 NONE bf16 + delta, K = 32, on the bands
+     of 1 card (2112x2048) and 4 (576x2048) beside the whole-grid
+     bounce-back window, the operations bound (1,500 flop a site and step)
+     and the plain version; the sharded rollout over a world of one beside
+     the single-device window rollout, ms/step and MLUPS.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -164,7 +187,7 @@ kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
 reset before the run; 9b's step run for the spectral solve; 10b's 2048^2
 FFT runs for the halo kernels; 11b's 128^2 runs for the cavity's y-shard
 kernels; 12b's 64^3 f32 + delta NONE runs for the 3-D halo kernel in its
-three roles), its worst
+three roles; 13b's torchrun CLI for the gated window), its worst
 error against its plain version, its time beside the plain version's,
 beside its bound and, where one PyTorch call computes the same function,
 beside that call's (library_ms), at the main path's shapes. The last line is {"ok": true, "device": {...}}; with --only, no
@@ -197,6 +220,8 @@ F64_FLOP_PER_S = 34e12         # non-tensor f64
 SWEEP_FLOP = {("gs", False): 8, ("gs", True): 11, ("nps", False): 14}
 # the halo kernels' launch counts in a CLI summary of a single-device run
 NO_HALO = {"collide_stream_halo": 0, "collide_stream_halo2d": 0}
+# and the gated window's (the sharded windows' kernel)
+NO_GATED = {"collide_stream_multistep_gated": 0}
 
 
 class SmokeFailure(RuntimeError):
@@ -524,12 +549,14 @@ def phase_golden():
 
 
 def _reset_launches():
-    """Every plasma kernel's launch count to 0 (the 2-D ones, the halo
-    kernels, the 3-D collide_stream3d and its halo kernel)."""
-    from lbm_tpu_torch.kernels import fused_step, fused_step3d
+    """Every plasma kernel's launch count to 0 (the 2-D ones, the gated
+    window, the halo kernels, the 3-D collide_stream3d and its halo
+    kernel)."""
+    from lbm_tpu_torch.kernels import fused_multistep, fused_step, fused_step3d
     from lbm_tpu_torch.run_plasma import KERNELS
     for mod in (*KERNELS.values(), fused_step3d):
         mod.LAUNCHES = 0
+    fused_multistep.GATED_LAUNCHES = 0
     for counts in (fused_step.HALO_LAUNCHES, fused_step3d.HALO_LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -556,13 +583,13 @@ def phase_sor_bounceback():
     want_launches = {
         "fused": {"collide_stream": steps, "fused_collide": 0,
                   "solve_iter": steps, "collide_stream_multistep": 0,
-                  "fft_solve": 0, **NO_HALO},
+                  "fft_solve": 0, **NO_HALO, **NO_GATED},
         "pallas": {"collide_stream": 0, "fused_collide": steps,
                    "solve_iter": steps, "collide_stream_multistep": 0,
-                   "fft_solve": 0, **NO_HALO},
+                   "fft_solve": 0, **NO_HALO, **NO_GATED},
         "plain": {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
                   "collide_stream_multistep": 0, "fft_solve": 0,
-                  **NO_HALO}}
+                  **NO_HALO, **NO_GATED}}
     for backend, summary in runs.items():
         require(summary["launches"] == want_launches[backend],
                 f"{backend}: launches {summary['launches']}, want "
@@ -1176,7 +1203,8 @@ def phase_multistep_golden():
                                os.path.join(OUT, "golden_multistep")])
     launches = summary["launches"]
     want = {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
-            "collide_stream_multistep": 25, "fft_solve": 0, **NO_HALO}
+            "collide_stream_multistep": 25, "fft_solve": 0, **NO_HALO,
+            **NO_GATED}
     require(launches == want, f"launches {launches}, want {want}")
     require(summary["finite"], "golden multistep state is not finite")
     worst = 0.0
@@ -2856,13 +2884,367 @@ def phase_sharded3d_real_size():
     return times
 
 
+
+# phase 13: the gated window. 13a's band: rows [0, GATED_ROWS) of a seeded
+# warm GATED_NY x GATED_NX bounce-back state, extended by K rows a side,
+# under each wall setting ((b, t): the rows of the band's bottom and top
+# walls, -1: none)
+GATED_NY, GATED_NX, GATED_ROWS = 74, 53, 37
+# the full grids cut into y-shards: (label, n, mode of COLLIDE_MODES,
+# solvers, cuts); K = GATED_CUT_K
+GATED_CUTS = [("512^2", 512, "f64", ("NONE", "FFT"), (2, 4, 8)),
+              ("2048^2", 2048, "bf16+delta", ("NONE",), (2, 4, 8))]
+GATED_CUT_K = 8
+# 13b's grid, whose y-shard and tile windows run 20 steps with K = 8
+GATED_SHARDED_N = 512
+# 13c: the cell (2048^2 NONE bf16 + delta, K = 32) and the bands of 1 and 4
+# cards
+GATED_TIMED_N, GATED_TIMED_K = 2048, 32
+
+
+def _gated_kw(cfg):
+    """collide_stream_multistep_gated's keywords for a bounce-back cfg:
+    the physics, and the kill quirk under NONE (FFT + bounce-back is the
+    no-op solve: E kept)."""
+    from lbm_tpu_torch.models import plasma
+    kw = plasma.multistep_kwargs(cfg)
+    return {k: v for k, v in kw.items()
+            if k not in ("bounce", "solve_fft", "solve_iter")}
+
+
+def _gated_walls(K, R):
+    return [(K, K + R - 1), (K, -1), (-1, K + R - 1), (-1, -1)]
+
+
+def phase_gated_kernel():
+    """Phase 13a: the gated window kernel bitwise against its plain version
+    on a band under each wall setting, and on every y-shard of cuts of full
+    grids (extended by K ghost rows as the ring exchange delivers them)
+    bitwise against the whole-grid bounce-back window at the shard's rows,
+    and at walls (0, NY-1) against it on the whole grid. Returns the worst
+    max|err| against the plain version in f64 (0 when bitwise)."""
+    import torch
+    from lbm_tpu_torch.config import BC, CompatFlags, PlasmaConfig
+    from lbm_tpu_torch.config import PoissonSolver as P
+    from lbm_tpu_torch.kernels import fused_multistep as fm
+
+    print("== phase 13a: the gated window kernel vs its plain version and "
+          "vs the whole-grid window on cuts of full grids")
+    device = torch.device("cuda")
+    modes = [("NONE kill", dict(poisson=P.NONE)),
+             ("NONE keep", dict(poisson=P.NONE, compat=CompatFlags(
+                 none_solver_kills_external_field=False))),
+             ("FFT", dict(poisson=P.FFT))]
+    worst = 0.0
+    for dmode in MULTISTEP_DTYPES:
+        label, dtype, storage, delta = dmode[:4]
+        held = 0
+        for mlabel, fields in modes:
+            cfg = PlasmaConfig(NX=GATED_NX, NY=GATED_NY,
+                               dtype=getattr(torch, dtype), storage=storage,
+                               neutral_delta=delta, bc=BC.BOUNCE_BACK,
+                               **fields)
+            kw = _gated_kw(cfg)
+            st = _seeded_state(cfg, device, seed=7453)
+            for k in (1, 4, 17):
+                band, _ = fm.window_inputs((st.f, st.g, st.Ex, st.Ey),
+                                           slice(0, GATED_ROWS), k)
+                for walls in _gated_walls(k, GATED_ROWS):
+                    k_out = fm.collide_stream_multistep_gated(
+                        *band, walls, k_steps=k, **kw)
+                    p_out = fm.collide_stream_multistep_gated_reference(
+                        *band, walls, k_steps=k, **kw)
+                    torch.cuda.synchronize()
+                    for name, kg, pg in zip(("f", "g"), k_out, p_out):
+                        require(bool(torch.isfinite(kg.float()).all()),
+                                f"{label} {mlabel} K={k} walls {walls} "
+                                f"{name}: not finite")
+                        mx = float((kg.double() - pg.double()).abs().max())
+                        if label == "f64":
+                            worst = max(worst, mx)
+                        require(torch.equal(_bits(kg), _bits(pg)),
+                                f"{label} {mlabel} K={k} walls {walls} "
+                                f"{name}: not bitwise equal to the plain "
+                                f"version (max|err| {mx:.3e})")
+                    held += 1
+        print(f"{label:>10}: {held} windows (NONE kill / keep, FFT; K = 1, "
+              f"4, 17; walls (K, K+R-1), (K, -1), (-1, K+R-1), (-1, -1) on "
+              f"a {GATED_ROWS}-row band of {GATED_NX} columns), each bitwise "
+              f"equal to the plain version")
+    modes_by = {m[0]: m for m in COLLIDE_MODES}
+    K = GATED_CUT_K
+    for glabel, n, mode, solvers, cuts in GATED_CUTS:
+        _, dtype, storage, delta = modes_by[mode][:4]
+        for solver in solvers:
+            cfg = PlasmaConfig(NX=n, NY=n, dtype=getattr(torch, dtype),
+                               storage=storage, neutral_delta=delta,
+                               bc=BC.BOUNCE_BACK, poisson=P[solver])
+            kw = _gated_kw(cfg)
+            st = _seeded_state(cfg, device, seed=n + 13, warm_steps=1)
+            arrays = (st.f, st.g, st.Ex, st.Ey)
+            whole = fm.collide_stream_multistep(*arrays, k_steps=K,
+                                                bounce=True, **kw)
+            pin = fm.collide_stream_multistep_gated(*arrays, (0, n - 1),
+                                                    k_steps=K, **kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("f", "g"), pin, whole):
+                require(torch.equal(_bits(a), _bits(b)),
+                        f"{glabel} {mode} {solver} walls (0, {n - 1}) "
+                        f"{name}: not bitwise the whole-grid window")
+            shards = 0
+            for cut in cuts:
+                R = n // cut
+                for r in range(cut):
+                    rows = slice(r * R, (r + 1) * R)
+                    band, walls = fm.window_inputs(arrays, rows, K)
+                    out = fm.collide_stream_multistep_gated(
+                        *band, walls, k_steps=K, **kw)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(("f", "g"), out, whole):
+                        require(torch.equal(_bits(a[..., K:-K, :]),
+                                            _bits(b[..., rows, :])),
+                                f"{glabel} {mode} {solver} cut {cut} shard "
+                                f"{r} walls {walls} {name}: not bitwise the "
+                                f"whole-grid window at its rows")
+                    shards += 1
+            print(f"{glabel} {mode} {solver} K={K}: walls (0, NY-1) and "
+                  f"{shards} shards of {len(cuts)} cuts, each bitwise equal "
+                  f"to the whole-grid bounce-back window")
+            del st, arrays, whole, pin
+            torch.cuda.empty_cache()
+    return worst
+
+
+def phase_gated_sharded():
+    """Phase 13b: the sharded windows on a one-rank NCCL group and (1, 1)
+    mesh, 20 steps with K = 8, bitwise against the single-device window
+    rollout (y-shards under each solver and wall, the 2-D rollout), the
+    tile protocol held in one process on (2, 2) and (2, 4) cuts, then the
+    windowed CLI under torchrun against the single-device CLI. Returns the
+    gated kernel's launches in the CLI run."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.config import BC, PlasmaConfig
+    from lbm_tpu_torch.config import PoissonSolver as P
+    from lbm_tpu_torch.kernels import fused_multistep as fm
+    from lbm_tpu_torch.models import plasma
+    from lbm_tpu_torch.parallel import fused_sharded, sharding
+    from lbm_tpu_torch.parallel import mesh as pmesh
+
+    print("== phase 13b: the sharded windows on a one-rank NCCL group, "
+          "(1, 1) mesh; the tile protocol; the torchrun CLI")
+    device = _one_rank_group("windows")
+    n, K, steps = GATED_SHARDED_N, 8, 20
+    fields = ("f", "g", "Ex", "Ey", "phi")
+    try:
+        m = pmesh.make_mesh((1, 1), "cuda")
+        for label, make, solver, bc in (
+                ("y-shards NONE periodic",
+                 fused_sharded.make_fused_sharded_multistep_rollout, P.NONE,
+                 BC.PERIODIC),
+                ("y-shards NONE bounce-back",
+                 fused_sharded.make_fused_sharded_multistep_rollout, P.NONE,
+                 BC.BOUNCE_BACK),
+                ("y-shards FFT bounce-back",
+                 fused_sharded.make_fused_sharded_multistep_rollout, P.FFT,
+                 BC.BOUNCE_BACK),
+                ("tiles NONE periodic",
+                 fused_sharded.make_fused_sharded_multistep_rollout_2d,
+                 P.NONE, BC.PERIODIC)):
+            cfg = PlasmaConfig(NX=n, NY=n, dtype=torch.float32,
+                               neutral_delta=True, poisson=solver, bc=bc,
+                               backend="fused", multistep=K)
+            st0 = _seeded_state(dataclasses.replace(cfg, multistep=0),
+                                device, seed=5120, warm_steps=1)
+            want = plasma.make_rollout(cfg, steps)(st0)
+            _reset_launches()
+            got = make(cfg, m, steps)(sharding.shard_state(st0, m))
+            torch.cuda.synchronize()
+            counts = (fm.LAUNCHES, fm.GATED_LAUNCHES)
+            for k in fields:
+                require(torch.equal(getattr(got, k), getattr(want, k)),
+                        f"{n}^2 {label}: {k} not bitwise equal to the "
+                        f"single-device window rollout")
+            gated = bc == BC.BOUNCE_BACK
+            require(counts == ((0, 3) if gated else (3, 0))
+                    and got.step == want.step == st0.step + steps,
+                    f"{label}: launches (window, gated) {counts}, step "
+                    f"{got.step}")
+            print(f"{n}^2 f32+delta {label}, {steps} steps in K = {K} "
+                  f"windows (8 + 8 + 4): bitwise equal to the single-device "
+                  f"window rollout; 3 launches of "
+                  f"{'the gated window' if gated else 'the window kernel'}")
+            del st0, want, got
+        # the tile protocol: each tile extended by K-deep slabs of the
+        # grid around it (the two-hop corners included), one window
+        cfg = PlasmaConfig(NX=n, NY=n, dtype=torch.float32,
+                           neutral_delta=True, poisson=P.NONE,
+                           backend="fused", multistep=K)
+        st = _seeded_state(dataclasses.replace(cfg, multistep=0), device,
+                           seed=5121, warm_steps=1)
+        arrays = (st.f, st.g, st.Ex, st.Ey)
+        kw = plasma.multistep_kwargs(cfg)
+        whole = fm.collide_stream_multistep(*arrays, k_steps=K, **kw)
+        tiles = 0
+        for ndy, ndx in ((2, 2), (2, 4)):
+            R, C = n // ndy, n // ndx
+            for by in range(ndy):
+                for bx in range(ndx):
+                    rows = slice(by * R, (by + 1) * R)
+                    cols = slice(bx * C, (bx + 1) * C)
+                    ext, _ = fm.window_inputs(arrays, rows, K, cols)
+                    out = fm.collide_stream_multistep(*ext, k_steps=K, **kw)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(("f", "g"), out, whole):
+                        require(torch.equal(a[..., K:-K, K:-K],
+                                            b[..., rows, cols]),
+                                f"tile ({by}, {bx}) of {ndy}x{ndx} {name}: "
+                                f"not bitwise the whole-grid window")
+                    tiles += 1
+        print(f"{n}^2 f32+delta NONE, K = {K}: {tiles} tiles of (2, 2) and "
+              f"(2, 4) cuts, each extended by {K}-deep slabs and corners, "
+              f"bitwise equal to the whole-grid window")
+        del st, arrays, whole
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # the CLI under torchrun, one rank, against the single-device CLI
+    # (the golden 200^2, 200 steps)
+    flags = ["--poisson", "NONE", "--bc", "bounceback", "--multistep", "8"]
+    single_out = os.path.join(OUT, "plasma_bb_ms8")
+    run_plasma.main([*flags, "--out", single_out])
+    shard_out = os.path.join(OUT, "plasma_bb_shard1_ms8")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1",
+           os.path.join(HERE, "scripts", "run_plasma_torch.py"),
+           *flags, "--shard", "1", "--out", shard_out]
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, PYTHONPATH=HERE))
+    require(r.returncode == 0, f"torchrun CLI failed:\n{r.stderr[-3000:]}")
+    found = re.search(r"kernel launches (.*?)(;|$)", r.stdout, re.M)
+    counts = dict((k, int(v)) for k, v in (
+        kv.rsplit(" ", 1) for kv in found.group(1).split(", "))) if found \
+        else {}
+    want = dict.fromkeys(run_plasma.launch_counts(), 0)
+    want["collide_stream_multistep_gated"] = 25
+    require(counts == want, f"torchrun CLI launches {counts}")
+    require("sharded multistep over mesh {'dy': 1, 'dx': 1}" in r.stdout,
+            f"torchrun CLI printed:\n{r.stdout[-2000:]}")
+    series = 0
+    for name in sorted(os.listdir(os.path.join(single_out, "graphs"))):
+        a = np.loadtxt(os.path.join(single_out, "graphs", name),
+                       delimiter=",")
+        b = np.loadtxt(os.path.join(shard_out, "graphs", name),
+                       delimiter=",")
+        require(a.shape == b.shape == (25, 9) and np.array_equal(a, b),
+                f"torchrun CLI probe series {name}: not bitwise equal to "
+                f"the single-device CLI's")
+        series += 1
+    print(f"torchrun --nproc-per-node 1 ... {' '.join(flags)} --shard 1 "
+          f"(200^2, 200 steps): 25 launches of the gated window; {series} "
+          f"probe series bitwise equal to the single-device CLI's")
+    return counts["collide_stream_multistep_gated"]
+
+
+def _gated_bound_ms(rows, nx, k_steps, storage):
+    """(least ms, "bytes" or "operations") of one gated window on a band of
+    rows x nx: f and g read and written once, against 1,500 flop a site
+    and step (the JAX kernel's cost estimate) at the f32 rate."""
+    t_ops = 1500 * rows * nx * k_steps / F32_FLOP_PER_S * 1e3
+    t_bytes = BYTES_PER_SITE[storage] * rows * nx / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_gated_real_size():
+    """Phase 13c: the gated window at 2048^2 NONE bf16 + delta, K = 32, on
+    the bands of 1 card (2112 x 2048) and 4 cards (576 x 2048) beside the
+    whole-grid bounce-back window, the bound and the plain version; the
+    sharded rollout over a world of one beside the single-device window
+    rollout. Returns (ms, plain_ms, bound_ms, bound_by, at) on the 1-card
+    band."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch.config import BC, PlasmaConfig, PoissonSolver
+    from lbm_tpu_torch.kernels import fused_multistep as fm
+    from lbm_tpu_torch.models import plasma
+    from lbm_tpu_torch.parallel import fused_sharded, sharding
+    from lbm_tpu_torch.parallel import mesh as pmesh
+
+    n, K = GATED_TIMED_N, GATED_TIMED_K
+    print(f"== phase 13c: the gated window at {n}^2 NONE bf16+delta, K = "
+          f"{K} (CUDA events)")
+    device = torch.device("cuda")
+    cfg = PlasmaConfig(NX=n, NY=n, dtype=torch.float32, storage="bf16",
+                       neutral_delta=True, poisson=PoissonSolver.NONE,
+                       bc=BC.BOUNCE_BACK, backend="fused", multistep=K)
+    kw = _gated_kw(cfg)
+    st = plasma.make_rollout(cfg, K)(plasma.init_state(cfg, device))
+    arrays = (st.f, st.g, st.Ex, st.Ey)
+    whole_ms = _device_ms(lambda: fm.collide_stream_multistep(
+        *arrays, k_steps=K, bounce=True, **kw), 3)
+    whole_bound, _ = _gated_bound_ms(n, n, K, "bf16")
+    out, line = None, []
+    for cards in (1, 4):
+        rows = slice(0, n // cards)
+        band, walls = fm.window_inputs(arrays, rows, K)
+        ms = _device_ms(lambda: fm.collide_stream_multistep_gated(
+            *band, walls, k_steps=K, **kw), 3)
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        fm.collide_stream_multistep_gated_reference(*band, walls, k_steps=K,
+                                                    **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tp) * 1e3
+        bound, bound_by = _gated_bound_ms(band[2].shape[0], n, K, "bf16")
+        shape = f"{band[2].shape[0]}x{n}"
+        line.append(f"{cards} card{'s' if cards > 1 else ''}: band {shape} "
+                    f"walls {walls} {ms:.4f} ms a launch ({ms / K:.4f} a "
+                    f"step), bound {bound:.4f} by {bound_by} "
+                    f"({100 * bound / ms:.1f}%), plain {plain_ms:.1f} ms")
+        if cards == 1:
+            out = (ms, plain_ms, bound, bound_by,
+                   f"{shape} bf16+delta NONE K={K}, the band of a world of "
+                   f"one")
+        del band
+        torch.cuda.empty_cache()
+    print(f"whole-grid bounce-back window {n}x{n} {whole_ms:.4f} ms a launch "
+          f"(bound {whole_bound:.4f}); " + "; ".join(line))
+    del st, arrays
+    torch.cuda.empty_cache()
+    device = _one_rank_group("windows_13c")
+    try:
+        m = pmesh.make_mesh((1, 1), "cuda")
+        res = []
+        for side, roll_of in (
+                ("single-device", lambda k: plasma.make_rollout(cfg, k)),
+                ("sharded", lambda k: fused_sharded.
+                 make_fused_sharded_multistep_rollout(cfg, m, k))):
+            state = plasma.init_state(cfg, device)
+            if side == "sharded":
+                state = sharding.shard_state(state, m)
+            state, ms = _window(roll_of(K), state, 1, 3)
+            ms /= K
+            require(all(bool(torch.isfinite(t.float()).all())
+                        for t in (state.f, state.g)),
+                    f"{n}^2 {side} windows: state not finite")
+            res.append(f"{side} {ms:.4f} ms/step "
+                       f"({n * n / (ms * 1e-3) / 1e6:.1f} MLUPS)")
+            del state
+            torch.cuda.empty_cache()
+        print(f"{n}^2 bf16+delta NONE bounce-back, K = {K} windows (1 + 3 "
+              f"timed) over a world of one: " + "; ".join(res))
+    finally:
+        dist.destroy_process_group()
+    return out
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
     ap.add_argument("--only", default=None,
-                    metavar="3,4,5,6,7,8,9,10,11,12",
+                    metavar="3,4,5,6,7,8,9,10,11,12,13",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -2926,6 +3308,11 @@ def main(argv=None) -> int:
         halo3d_err = timed(phase_halo3d_kernel)
         launches.update(timed(phase_sharded3d_world_of_one))
         halo3d_times = timed(phase_sharded3d_real_size)
+    if run("13"):
+        gated_err = timed(phase_gated_kernel)
+        launches["collide_stream_multistep_gated"] = timed(
+            phase_gated_sharded)
+        gated_times = timed(phase_gated_real_size)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -3016,6 +3403,16 @@ def main(argv=None) -> int:
             "max_abs_err_at": "phase 12a, 64^3 f64, every shard of every cut",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None, "ms_at": at})
+    ms, plain_ms, bound, bound_by, at = gated_times
+    kernels.append({
+        "name": "collide_stream_multistep_gated", "route": "cuda",
+        "source": CSRC + "fused_multistep.cu",
+        "replaces": "lbm_tpu/kernels/fused_multistep.py:659",
+        "launches": launches["collide_stream_multistep_gated"],
+        "max_abs_err": gated_err,
+        "max_abs_err_at": "phase 13a f64, every band and wall setting",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None, "ms_at": at})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

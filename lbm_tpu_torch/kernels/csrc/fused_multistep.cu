@@ -3,32 +3,37 @@
 // Replaces lbm_tpu/kernels/fused_multistep.py:collide_stream_multistep (the
 // Pallas kernels of _make_kernel: the constant-E march, the in-kernel
 // spectral solve, the in-kernel iterative sweeps, and the bounce-back wall
-// fixups). The TPU kernel keeps the whole (f, g) state in VMEM, which ends
-// near 256^2-304^2, and bands the grid past that; here the state stays in
+// fixups) and :collide_stream_multistep_gated (the bounce-back march with
+// its wall rows given at run time, on a shard extended by K ghost rows).
+// The TPU kernel keeps the whole (f, g) state in VMEM, which ends near
+// 256^2-304^2, and bands the grid past that; here the state stays in
 // device memory and one persistent cooperative grid, sized to the
 // co-resident maximum, walks the sites with grid-stride loops and meets at
 // grid.sync() between the stages of a step. Any grid that fits the card
 // runs, so the banded wrapper has no counterpart.
 //
 // A step, as the per-step path runs it (src/plasma.cpp:476-523):
-//   1. collide + push-stream, one thread per site, through plasma_site.cuh's
-//      collide_site (the per-step kernel's body, so the two cannot drift
-//      apart). The steps ping-pong two work buffers in the compute type;
-//      with native storage the first step reads the input and the last one
-//      writes the output, and bf16 storage is decoded into a work buffer in
-//      a pass before the first step and encoded in a pass after the last,
-//      so it rounds once a window.
+//   1. collide + push-stream, one thread per site, through
+//      multistep_site.cuh's collide_stream_site, which collides through
+//      plasma_site.cuh's collide_site (the per-step kernel's body, so the
+//      two cannot drift apart). The steps ping-pong two work buffers in the
+//      compute type; with native storage the first step reads the input and
+//      the last one writes the output, and bf16 storage is decoded into a
+//      work buffer in a pass before the first step and encoded in a pass
+//      after the last, so it rounds once a window.
 //      In the solve modes the stage also writes rho_q.
-//      Bounce-back is written by the same stage: a value whose push crosses
-//      a wall goes where the reference's serial push loop
-//      (src/streaming.cpp:70-105) puts it, and of the values that land on
-//      one corner slot only the one the serial (x, y, i) order writes last
-//      is stored, so every slot is written by exactly one thread and no
-//      second pass has to read and rewrite edge values in place. The 8
-//      corner holes that loop never writes keep stale values: the site's
-//      own pre-collision f for the f pass and its post-collision f for the
-//      g pass, plus neutral_ref * w_i for species 2 under delta storage
-//      (lbm_tpu/ops/stream.bounceback_fix_dirs and its callers).
+//      Bounce-back is written by the same stage, on a band whose y walls sit
+//      at the rows wall_b and wall_t (-1: none): (0, NY - 1) for the whole
+//      grid, the global walls' rows on an extended shard. A value whose
+//      push crosses a wall goes where JAX's gated fixups put it (the
+//      reference's serial push loop, src/streaming.cpp:70-105, on the
+//      whole grid), a push into a wall row from beyond it is dropped, and
+//      of the values that land on one slot only the winner is stored, so
+//      every slot is written by exactly one thread and no second pass has
+//      to read and rewrite edge values in place. The 8 corner holes keep
+//      stale values: the site's own pre-collision f for the f pass and its
+//      post-collision f for the g pass, plus neutral_ref * w_i for species 2
+//      under delta storage.
 //   2. the field:
 //      * constant E (the NONE solver, or FFT under bounce-back, the
 //        reference's no-op solve): no stage; with kill_field every step
@@ -60,6 +65,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "multistep_site.cuh"
 #include "plasma_site.cuh"
 #include "poisson_sweep.cuh"
 
@@ -88,6 +94,7 @@ struct MultistepHost {
   void* dft[4];          // FFT: four (NY, NX/2 + 1) planes
   int NY, NX, Hp, K;
   int bounce, kill, iter_kind, interior, neumann, max_iter;
+  int wall_b, wall_t;    // bounce: the bottom and top wall rows (-1: none)
   double tol, omega;
 };
 
@@ -117,102 +124,29 @@ struct Window {
   const T *cy, *sy, *cxh, *sxh, *invh, *gcx, *gsx;
   T *dA, *dB, *dC, *dD;
   int NY, NX, H, Hp, K;
-  int solve, bounce, kill, iter_kind, interior, neumann, max_iter;
+  window::Band band;
+  int solve, kill, iter_kind, interior, neumann, max_iter;
   T tol, omega, one_minus_omega;
   T hole_bg[kQ];   // neutral_ref * w_i, added to species 2's g holes (delta)
 };
 
-__device__ __forceinline__ bool inside(int v, int n) { return v >= 0 && v < n; }
-
-// Where push bounce-back sends post-collision value i of site (y, x): the
-// destination's flat site index, with its direction in j; -1 when a value
-// later in the reference's serial (x, y, i) write order lands on the same
-// slot. Candidates for a slot (j, yd, xd) whose pull source lies outside
-// the grid: (b) the y-blocked value of (yd, xd + cx_j), (c) the x-blocked
-// value of (yd + cy_j, xd), (d) the corner value of (yd, xd); with both
-// axes blocked (b) wins when cx_j = +1, else (c) when cy_j = +1, else (d).
-__device__ __forceinline__ int64_t bounce_dest(int i, int y, int x, int NY, int NX, int& j) {
-  const int cx = cx_of(i), cy = cy_of(i);
-  const int xs = x + cx, ys = y + cy;
-  const bool xin = inside(xs, NX), yin = inside(ys, NY);
-  if (xin && yin) {
-    j = i;
-    return static_cast<int64_t>(ys) * NX + xs;
-  }
-  j = opp_of(i);
-  bool wins;
-  int64_t d;
-  if (xin) {          // (b): the y wall blocks; slide in x and reflect
-    wins = cx == 0 || inside(x + 2 * cx, NX) || cx == -1;
-    d = static_cast<int64_t>(y) * NX + xs;
-  } else if (yin) {   // (c): the x wall blocks; slide in y and reflect
-    wins = cy == 0 || inside(y + 2 * cy, NY) || (cx == 1 && cy == -1);
-    d = static_cast<int64_t>(ys) * NX + x;
-  } else {            // (d): a corner; reflect in place
-    wins = cx == 1 && cy == 1;
-    d = static_cast<int64_t>(y) * NX + x;
-  }
-  return wins ? d : -1;
-}
-
-// Slot (i, y, x) is one of the 8 corner holes that no value reaches.
-__device__ __forceinline__ bool is_hole(int i, int y, int x, int NY, int NX) {
-  const bool yin = inside(y - cy_of(i), NY), xin = inside(x - cx_of(i), NX);
-  return (!yin && xin && !inside(x + cx_of(i), NX)) ||
-         (yin && !xin && !inside(y + cy_of(i), NY));
-}
-
-// Stage 1 of a step for every site, grid-stride: collide + push-stream (or
-// bounce-back) from (f, g) into (f_out, g_out), all in the compute type. No
-// __restrict__: the work buffers are written and read again within the
-// launch, which the read-only cache path must not serve. Inlined: a call
-// reads the constants through a pointer instead of the kernel's parameter
-// bank, and ran slower a step at every size tried on the H100.
+// Stage 1 of a step for every site, grid-stride: collide + push-stream
+// (periodic, or with the band's walls) from (f, g) into (f_out, g_out), all
+// in the compute type, through multistep_site.cuh. No __restrict__: the
+// work buffers are written and read again within the launch, which the
+// read-only cache path must not serve. Inlined: a call reads the constants
+// through a pointer instead of the kernel's parameter bank, and ran slower
+// a step at every size tried on the H100.
 template <typename S, typename T, bool DELTA, bool FAST>
 __device__ __forceinline__ void collide_all(const Window<S, T>& w, const Params<T>& p,
                                             const T* f, const T* g, T* f_out, T* g_out,
                                             const T* Ex, const T* Ey, bool zero_E, T* rho_q) {
-  const int NY = w.NY, NX = w.NX;
-  const int64_t plane = static_cast<int64_t>(NY) * NX;
+  const int64_t plane = static_cast<int64_t>(w.NY) * w.NX;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t site = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       site < plane; site += stride) {
-    const int y = static_cast<int>(site / NX);
-    const int x = static_cast<int>(site - static_cast<int64_t>(y) * NX);
-    T fv[kS][kQ], gv[kS][kQ];
-    load_site<T, T>(f, g, plane, site, fv, gv);
-    const T ex = zero_E ? T(0.0) : Ex[site];
-    const T ey = zero_E ? T(0.0) : Ey[site];
-    const bool edge = w.bounce && (y == 0 || y == NY - 1 || x == 0 || x == NX - 1);
-    const int64_t row[3] = {static_cast<int64_t>(y == 0 ? NY - 1 : y - 1) * NX,
-                            static_cast<int64_t>(y) * NX,
-                            static_cast<int64_t>(y == NY - 1 ? 0 : y + 1) * NX};
-    const int col[3] = {x == 0 ? NX - 1 : x - 1, x, x == NX - 1 ? 0 : x + 1};
-    const T rq = collide_site<T, DELTA, FAST>(
-        fv, gv, ex, ey, p, [&](int s, const T* fo, const T* go) {
-#pragma unroll
-          for (int i = 0; i < kQ; ++i) {
-            if (!edge) {
-              const int64_t dst = (s * kQ + i) * plane + row[cy_of(i) + 1] + col[cx_of(i) + 1];
-              f_out[dst] = fo[i];
-              g_out[dst] = go[i];
-              continue;
-            }
-            int j;
-            const int64_t d = bounce_dest(i, y, x, NY, NX, j);
-            if (d >= 0) {
-              f_out[(s * kQ + j) * plane + d] = fo[i];
-              g_out[(s * kQ + j) * plane + d] = go[i];
-            }
-            if (is_hole(i, y, x, NY, NX)) {
-              const int64_t h = (s * kQ + i) * plane + site;
-              f_out[h] = fv[s][i];
-              g_out[h] = (DELTA && s == 2) ? fo[i] + w.hole_bg[i] : fo[i];
-            }
-          }
-        });
-    if (rho_q != nullptr) rho_q[site] = rq;
-  }
+       site < plane; site += stride)
+    window::collide_stream_site<T, DELTA, FAST>(w.band, f, g, f_out, g_out, Ex, Ey, zero_E,
+                                                rho_q, site, p, w.hole_bg);
 }
 
 // Stage 1 of step k: input, output and work buffers by position in the
@@ -524,8 +458,8 @@ cudaError_t launch(int solve, const MultistepHost& h, const HostParams& hp,
   w.H = h.NX / 2 + 1;
   w.Hp = h.Hp;
   w.K = h.K;
+  w.band = {h.NY, h.NX, h.bounce, h.bounce ? h.wall_b : -1, h.bounce ? h.wall_t : -1};
   w.solve = solve;
-  w.bounce = h.bounce;
   w.kill = h.kill;
   w.iter_kind = h.iter_kind;
   w.interior = h.interior;
@@ -563,7 +497,9 @@ extern "C" int lbm_plasma_multistep(int mode, int delta, int solve_kind,
   if (h == nullptr || hp == nullptr || h->K < 1 || h->NY < 2 || h->NX < 2 ||
       static_cast<int64_t>(h->NY) * h->NX > INT32_MAX || solve_kind < 0 || solve_kind > 2 ||
       h->iter_kind < 0 || h->iter_kind > 2 ||
-      ((h->bounce || h->neumann) && (h->NY < 3 || h->NX < 3)))
+      ((h->bounce || h->neumann) && (h->NY < 3 || h->NX < 3)) ||
+      (h->bounce && (h->wall_b < -1 || h->wall_b >= h->NY || h->wall_t < -1 ||
+                     h->wall_t >= h->NY)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {

@@ -18,12 +18,23 @@ Modes, as the JAX kernel's:
 bounce=True streams with the bounce-back walls, the corner holes' stale
 values included (ops/stream.py).
 
-On CUDA tensors the wrapper checks its inputs and launches
+collide_stream_multistep_gated (counterpart of
+lbm_tpu/kernels/fused_multistep.py:collide_stream_multistep_gated) is the
+bounce-back constant-E window on a band: a shard extended by K ghost rows a
+side, with the global walls at the rows wall_rows = (bottom, top) that it
+holds (-1: none) and periodic in y elsewhere (ops/stream.
+stream_bounceback_gated). The wall rows block the ghost rows, which the
+sharded rollouts fill by a ring exchange, so rows [K:-K] come out exact.
+Both wrappers launch the one CUDA kernel: the whole grid with bounce=True
+is the band (0, NY-1).
+
+On CUDA tensors a wrapper checks its inputs and launches
 csrc/fused_multistep.cu into fresh output buffers, or raises: the DFT runs
-inside that kernel, never in cuBLAS or cuFFT. On CPU tensors it runs
-the plain version, collide_stream_multistep_reference, which the tests hold
-against the JAX package and which chip_smoke.py holds against the kernel.
-LAUNCHES counts the launches.
+inside that kernel, never in cuBLAS or cuFFT. On CPU tensors it runs its
+plain version (collide_stream_multistep_reference,
+collide_stream_multistep_gated_reference), which the tests hold against the
+JAX package and which chip_smoke.py holds against the kernel. LAUNCHES and
+GATED_LAUNCHES count each wrapper's launches.
 
 bf16 storage decodes to f32 once, marches K steps in f32 and rounds once at
 the end, with the bf16 thermal forms and an exact reciprocal (the TPU
@@ -45,13 +56,14 @@ from ..constants import D2Q9
 from ..ops import poisson
 from ..ops.collide import collide
 from ..ops.macros import update_macro
-from ..ops.stream import (HOLE_SLOTS, bounceback_from_periodic, hole_values,
-                          stream_bounceback, stream_periodic)
+from ..ops.stream import stream_bounceback_gated, stream_periodic
 from . import build, fused_step, poisson_iter
 from .fused_cavity import compute_dtype
 
 LAUNCHES = 0
+GATED_LAUNCHES = 0
 _NAME = "collide_stream_multistep"
+_GATED_NAME = "collide_stream_multistep_gated"
 
 # (kind, omega, max_iter, tol, interior_only, neumann)
 IterSpec = Tuple[str, Optional[float], int, float, bool, bool]
@@ -71,6 +83,7 @@ class MultistepHost(ctypes.Structure):
         ("NY", _CI), ("NX", _CI), ("Hp", _CI), ("K", _CI),
         ("bounce", _CI), ("kill", _CI), ("iter_kind", _CI),
         ("interior", _CI), ("neumann", _CI), ("max_iter", _CI),
+        ("wall_b", _CI), ("wall_t", _CI),
         ("tol", _CD), ("omega", _CD),
     ]
 
@@ -179,28 +192,14 @@ def _check_modes(f, phi, k_steps, bounce, solve_fft, solve_iter) -> None:
                          f"(3, 9, NY, NX)")
 
 
-def _g_holes(f_post: torch.Tensor, neutral_ref: float) -> list:
-    """The g pass's 8 stale corner values: post-collision f, plus the
-    neutral's background neutral_ref * w_i under delta storage
-    (models/plasma._g_holes_with_background), in the compute dtype."""
-    vals = hole_values(f_post)
-    if neutral_ref != 0.0:
-        for v, (i, _, _) in zip(vals, HOLE_SLOTS):
-            v[..., 2] = v[..., 2] + neutral_ref * float(D2Q9.W[i])
-    return vals
-
-
-def collide_stream_multistep_reference(
-    f: torch.Tensor, g: torch.Tensor, Ex: torch.Tensor, Ey: torch.Tensor,
-    phi: Optional[torch.Tensor] = None, *,
-    taus, q_e: float, q_i: float, m_e: float, m_i: float,
-    cs2: float, kb: float, neutral_ref: float = 0.0,
-    k_steps: int, kill_field: bool = True, bounce: bool = False,
-    solve_fft: bool = False, solve_iter: Optional[IterSpec] = None,
-):
-    """Plain version: k_steps of update_macro -> collide -> stream in the
-    compute dtype, decoded once and rounded to the storage dtype once."""
-    _check_modes(f, phi, k_steps, bounce, solve_fft, solve_iter)
+def _march(f, g, Ex, Ey, phi, *, taus, q_e, q_i, m_e, m_i, cs2, kb,
+           neutral_ref, k_steps, kill_field, walls, solve_fft, solve_iter):
+    """The plain versions' k_steps of update_macro -> collide -> stream in
+    the compute dtype, decoded once and rounded to the storage dtype once;
+    walls: the y-wall rows of stream_bounceback_gated, None for the
+    periodic push. The f pass's stale corner planes are the pre-collision
+    f, the g pass's the post-collision f plus the neutral's delta
+    background (the reference's recycled temp buffers)."""
     cdt = compute_dtype(f)
     NY, NX = f.shape[-2:]
     recip = (lambda x: 1.0 / x) if f.dtype == torch.bfloat16 else None
@@ -217,12 +216,10 @@ def collide_stream_multistep_reference(
         f_post, g_post = collide(ff, gg, mac, Ex, Ey, taus=taus, q_e=q_e,
                                  q_i=q_i, m_e=m_e, m_i=m_i, cs2=cs2, kb=kb,
                                  neutral_ref=neutral_ref, g_recip=recip)
-        if bounce:
-            # the reference's recycled temp buffers: pre-collision f in the
-            # f pass's corner holes, post-collision f in the g pass's
-            f_new = stream_bounceback(f_post, stale=ff)
-            g_new = bounceback_from_periodic(stream_periodic(g_post),
-                                             _g_holes(f_post, neutral_ref))
+        if walls is not None:
+            f_new = stream_bounceback_gated(f_post, ff, *walls)
+            g_new = stream_bounceback_gated(
+                g_post, _g_stale(f_post, neutral_ref), *walls)
         else:
             f_new, g_new = stream_periodic(f_post), stream_periodic(g_post)
         if solve_fft:
@@ -242,18 +239,52 @@ def collide_stream_multistep_reference(
     return f_out, g_out
 
 
+def _g_stale(f_post: torch.Tensor, neutral_ref: float) -> torch.Tensor:
+    """The g pass's stale planes: post-collision f, with species 2's
+    corner directions 5-8 plus neutral_ref * w_i under delta storage
+    (models/plasma._g_holes_with_background)."""
+    if neutral_ref == 0.0:
+        return f_post
+    stale = f_post.clone()
+    for i in (5, 6, 7, 8):
+        stale[2, i] = f_post[2, i] + neutral_ref * float(D2Q9.W[i])
+    return stale
+
+
+def collide_stream_multistep_reference(
+    f: torch.Tensor, g: torch.Tensor, Ex: torch.Tensor, Ey: torch.Tensor,
+    phi: Optional[torch.Tensor] = None, *,
+    taus, q_e: float, q_i: float, m_e: float, m_i: float,
+    cs2: float, kb: float, neutral_ref: float = 0.0,
+    k_steps: int, kill_field: bool = True, bounce: bool = False,
+    solve_fft: bool = False, solve_iter: Optional[IterSpec] = None,
+):
+    """Plain version: k_steps of update_macro -> collide -> stream in the
+    compute dtype, decoded once and rounded to the storage dtype once;
+    bounce-back is the gated stream with the walls at rows (0, NY-1)."""
+    _check_modes(f, phi, k_steps, bounce, solve_fft, solve_iter)
+    return _march(f, g, Ex, Ey, phi, taus=taus, q_e=q_e, q_i=q_i, m_e=m_e,
+                  m_i=m_i, cs2=cs2, kb=kb, neutral_ref=neutral_ref,
+                  k_steps=k_steps, kill_field=kill_field,
+                  walls=(0, f.shape[-2] - 1) if bounce else None,
+                  solve_fft=solve_fft, solve_iter=solve_iter)
+
+
 def _launch(f, g, Ex, Ey, phi, phys, k_steps, kill_field, bounce, solve_fft,
-            solve_iter):
+            solve_iter, wall_rows=None, name=_NAME):
+    """Launch the window kernel; wall_rows (bounce only): the band's y-wall
+    rows, (0, NY-1) for the whole grid."""
     cdt = compute_dtype(f)
     Ex, Ey = Ex.to(cdt), Ey.to(cdt)
-    mode = fused_step._check_inputs(_NAME, fused_step._MODES, f, g, Ex, Ey)
+    mode = fused_step._check_inputs(name, fused_step._MODES, f, g, Ex, Ey)
     NY, NX = Ex.shape
     neumann = bool(solve_iter[5]) if solve_iter is not None else False
     if (bounce or neumann) and min(NY, NX) < 3:
-        raise ValueError(f"{_NAME}: walls need a grid of at least 3x3, got "
+        raise ValueError(f"{name}: walls need a grid of at least 3x3, got "
                          f"{NY}x{NX}")
     if NY * NX > 2**31 - 1:
-        raise ValueError(f"{_NAME}: {NY}x{NX} exceeds 2^31 sites")
+        raise ValueError(f"{name}: {NY}x{NX} exceeds 2^31 sites")
+    wall_b, wall_t = (0, NY - 1) if wall_rows is None else wall_rows
     lib = build.load()
     if lib.lbm_multistep_host_size() != ctypes.sizeof(MultistepHost):
         raise RuntimeError("MultistepHost layout differs between "
@@ -264,7 +295,8 @@ def _launch(f, g, Ex, Ey, phi, phys, k_steps, kill_field, bounce, solve_fft,
         return torch.empty((NY, NX), dtype=cdt, device=dev)
 
     h = MultistepHost(NY=NY, NX=NX, Hp=pad_half(NX), K=int(k_steps),
-                      bounce=int(bool(bounce)), kill=int(bool(kill_field)))
+                      bounce=int(bool(bounce)), kill=int(bool(kill_field)),
+                      wall_b=wall_b, wall_t=wall_t)
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     # bf16 storage decodes into, and encodes from, the work buffers
     n_work = 2 if cdt != f.dtype else min(int(k_steps) - 1, 2)
@@ -296,7 +328,7 @@ def _launch(f, g, Ex, Ey, phi, phys, k_steps, kill_field, bounce, solve_fft,
         kind, omega, max_iter, tol, interior_only, _ = solve_iter
         phi_in = phi.to(cdt).contiguous()
         if phi_in.device != dev or phi_in.shape != (NY, NX):
-            raise ValueError(f"{_NAME}: phi must be an (NY, NX) tensor on "
+            raise ValueError(f"{name}: phi must be an (NY, NX) tensor on "
                              f"{dev}, got {tuple(phi.shape)} on {phi.device}")
         scratch = plane()
         err_ring = torch.empty(3, dtype=torch.int64, device=dev)
@@ -313,7 +345,7 @@ def _launch(f, g, Ex, Ey, phi, phys, k_steps, kill_field, bounce, solve_fft,
             mode, int(phys["neutral_ref"] != 0.0), solve_kind,
             ctypes.addressof(h), ctypes.addressof(hp), stream)
     if err != 0:
-        raise RuntimeError(f"{_NAME} kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     return out
 
 
@@ -343,3 +375,82 @@ def collide_stream_multistep(
     out = _launch(f, g, Ex, Ey, phi, phys, **mode)
     LAUNCHES += 1
     return out
+
+
+def _check_wall_rows(wall_rows, NY: int) -> Tuple[int, int]:
+    """(bottom, top) as ints, each a row of the band or -1."""
+    b, t = (int(r) for r in wall_rows)
+    if not all(-1 <= r < NY for r in (b, t)):
+        raise ValueError(f"{_GATED_NAME}: wall_rows {(b, t)} must be rows "
+                         f"of the {NY}-row band or -1")
+    return b, t
+
+
+def collide_stream_multistep_gated_reference(
+    f: torch.Tensor, g: torch.Tensor, Ex: torch.Tensor, Ey: torch.Tensor,
+    wall_rows, *, taus, q_e: float, q_i: float, m_e: float, m_i: float,
+    cs2: float, kb: float, neutral_ref: float = 0.0, k_steps: int,
+    kill_field: bool = True,
+):
+    """Plain version of the gated window: k_steps of update_macro ->
+    collide -> stream_bounceback_gated at the band's wall rows, in the
+    compute dtype, decoded once and rounded to the storage dtype once
+    (lbm_tpu/kernels/fused_multistep.py:_make_kernel, bounce=True,
+    gated=True). The f pass's stale planes are the pre-collision f, the g
+    pass's the post-collision f (plus the neutral's delta background);
+    with kill_field every step after the first collides with E = 0."""
+    _check_modes(f, None, k_steps, True, False, None)
+    return _march(f, g, Ex, Ey, None, taus=taus, q_e=q_e, q_i=q_i, m_e=m_e,
+                  m_i=m_i, cs2=cs2, kb=kb, neutral_ref=neutral_ref,
+                  k_steps=k_steps, kill_field=kill_field,
+                  walls=_check_wall_rows(wall_rows, f.shape[-2]),
+                  solve_fft=False, solve_iter=None)
+
+
+def collide_stream_multistep_gated(
+    f: torch.Tensor,    # (3, Q, NY, NX): a shard extended by K ghost rows
+    g: torch.Tensor,
+    Ex: torch.Tensor,   # (NY, NX): the window's starting field
+    Ey: torch.Tensor,
+    wall_rows,          # (bottom, top) rows of the band; -1: none
+    *,
+    taus, q_e: float, q_i: float, m_e: float, m_i: float,
+    cs2: float, kb: float, neutral_ref: float = 0.0,
+    k_steps: int, kill_field: bool = True,
+):
+    """k_steps bounce-back plasma steps with the y walls at wall_rows, in
+    one launch; returns (f, g), which the caller cuts to the shard's rows.
+    NONE + bounce-back (kill_field under the quirk) and FFT + bounce-back
+    (the no-op solve: E constant, kill_field False)."""
+    global GATED_LAUNCHES
+    _check_modes(f, None, k_steps, True, False, None)
+    wall_rows = _check_wall_rows(wall_rows, f.shape[-2])
+    phys = dict(taus=tuple(taus), q_e=q_e, q_i=q_i, m_e=m_e, m_i=m_i,
+                cs2=cs2, kb=kb, neutral_ref=neutral_ref)
+    if f.device.type == "cpu":
+        return collide_stream_multistep_gated_reference(
+            f, g, Ex, Ey, wall_rows, **phys, k_steps=int(k_steps),
+            kill_field=kill_field)
+    out = _launch(f, g, Ex, Ey, None, phys, int(k_steps), kill_field, True,
+                  False, None, wall_rows=wall_rows, name=_GATED_NAME)
+    GATED_LAUNCHES += 1
+    return out
+
+
+def window_inputs(arrays, rows: slice, k: int, cols: slice | None = None):
+    """One shard's extended window inputs cut from full (..., NY, NX)
+    arrays, as the sharded rollouts' ring exchanges deliver them: rows
+    extended by k a side and, with cols, columns too, wrapped around the
+    grid. Returns (extended arrays, wall_rows): the bottom wall at row k
+    where the shard holds y = 0 and the top wall at its last row where it
+    holds y = NY-1 (-1 elsewhere)."""
+    NY, NX = arrays[0].shape[-2:]
+    y0, y1 = rows.start, rows.stop
+    ys = torch.arange(y0 - k, y1 + k, device=arrays[0].device) % NY
+    out = [a.index_select(-2, ys) for a in arrays]
+    if cols is not None:
+        xs = torch.arange(cols.start - k, cols.stop + k,
+                          device=arrays[0].device) % NX
+        out = [a.index_select(-1, xs) for a in out]
+    return ([a.contiguous() for a in out],
+            (k if y0 == 0 else -1, k + y1 - y0 - 1 if y1 == NY else -1))

@@ -1,6 +1,7 @@
 """Push streaming with periodic wrap or bounce-back walls, and the cavity's
 pull streaming (counterpart of lbm_tpu/ops/stream.py: stream_periodic, the
-bounce-back fixups and their flat-gather test oracle, stream_cavity; and
+bounce-back fixups and their flat-gather test oracle,
+bounceback_fix_dirs_gated as stream_bounceback_gated, stream_cavity; and
 stream_cavity_gated, the gated step_planes of the cavity window kernel).
 
 Bounce-back is applied as the periodic push plus edge-row and edge-column
@@ -177,6 +178,75 @@ def bounceback_from_periodic(out: torch.Tensor, hole_vals: list
     out[..., 7, -1, :] = src_7row    # row wins (7,-1,-1)
     out[..., 8, :, 0] = src_8col
     out[..., 8, -1, :] = src_8row    # row wins (8,-1,0)
+    return out
+
+
+def stream_bounceback_gated(f: torch.Tensor, stale: torch.Tensor,
+                            b_row: int, t_row: int) -> torch.Tensor:
+    """Push bounce-back with the bottom wall at row b_row and the top wall
+    at row t_row (-1: none), periodic in y elsewhere: the plain counterpart
+    of lbm_tpu/ops/stream.bounceback_fix_dirs_gated, on a band extended by
+    ghost rows.
+
+    The periodic push wraps in y within the band. The x-wall columns apply
+    on every row; the y-wall reflections and corner holes only on the wall
+    rows. Every wall source is a same-row post-collision value, so a wall
+    row overwrites every slot that a push from beyond it would fill: the
+    walls keep the ghost rows out. The 8 corner holes read `stale` in place,
+    slot (i, y, x) taking stale[i, y, x]. The write order is JAX's, which
+    encodes the reference's serial corner winners (src/streaming.cpp:
+    70-105): column then row for directions 5, 7 and 8, row then column for
+    6. With the rows at (0, NY-1) this is stream_bounceback(f, stale).
+
+    f: (..., Q, NY, NX) post-collision populations; stale: the same shape
+    (pre-collision f for the f pass, post-collision f plus the neutral's
+    delta background for the g pass); only directions 5-8 are read."""
+    out = stream_periodic(f)
+    b, t = int(b_row), int(t_row)
+    # axis directions: the x walls on every row, the y walls on theirs
+    out[..., 1, :, 0] = f[..., 3, :, 0]
+    out[..., 3, :, -1] = f[..., 1, :, -1]
+    if b >= 0:
+        out[..., 2, b, :] = f[..., 4, b, :]
+    if t >= 0:
+        out[..., 4, t, :] = f[..., 2, t, :]
+    # 5 (+1, +1) <- 7: the column (hole at the top row), then the bottom
+    # row (hole at its last column), which wins (5, b, 0)
+    col = torch.roll(f[..., 7, :, 0], -1, dims=-1)        # f7[y + 1, 0]
+    if t >= 0:
+        col[..., t] = stale[..., 5, t, 0]
+    out[..., 5, :, 0] = col
+    if b >= 0:
+        out[..., 5, b, :-1] = f[..., 7, b, 1:]
+        out[..., 5, b, -1] = stale[..., 5, b, -1]
+    # 6 (-1, +1) <- 8: the bottom row (hole at column 0), then the column
+    # (hole at the top row), which wins (6, b, NX-1)
+    if b >= 0:
+        out[..., 6, b, 0] = stale[..., 6, b, 0]
+        out[..., 6, b, 1:] = f[..., 8, b, :-1]
+    col = torch.roll(f[..., 8, :, -1], -1, dims=-1)       # f8[y + 1, NX-1]
+    if t >= 0:
+        col[..., t] = stale[..., 6, t, -1]
+    out[..., 6, :, -1] = col
+    # 7 (-1, -1) <- 5: the column (hole at the bottom row), then the top
+    # row (hole at column 0; (7, t, NX-1) reflects f5[t, NX-1] in place)
+    col = torch.roll(f[..., 5, :, -1], 1, dims=-1)        # f5[y - 1, NX-1]
+    if b >= 0:
+        col[..., b] = stale[..., 7, b, -1]
+    out[..., 7, :, -1] = col
+    if t >= 0:
+        out[..., 7, t, 0] = stale[..., 7, t, 0]
+        out[..., 7, t, 1:-1] = f[..., 5, t, :-2]
+        out[..., 7, t, -1] = f[..., 5, t, -1]
+    # 8 (+1, -1) <- 6: the column (hole at the bottom row), then the top
+    # row (hole at its last column), which wins (8, t, 0)
+    col = torch.roll(f[..., 6, :, 0], 1, dims=-1)         # f6[y - 1, 0]
+    if b >= 0:
+        col[..., b] = stale[..., 8, b, 0]
+    out[..., 8, :, 0] = col
+    if t >= 0:
+        out[..., 8, t, :-1] = f[..., 6, t, 1:]
+        out[..., 8, t, -1] = stale[..., 8, t, -1]
     return out
 
 

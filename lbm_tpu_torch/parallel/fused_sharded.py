@@ -21,6 +21,15 @@ make_fused_sharded_step_auto picks the mesh as the JAX package does
 where the JAX package falls back to its GSPMD jnp step (ROADMAP Queue 1
 item 17).
 
+The plasma's windows (make_fused_sharded_multistep_rollout on a (dy, 1)
+mesh, _rollout_2d on (dy, dx) tiles) exchange K-row slabs of f, g, Ex and
+Ey once a window and run K steps in one launch of the window kernel on the
+extended block, keeping its rows (and on tiles its columns) [K:-K]: the
+periodic wrap's error enters at the block's ends and moves one row a step.
+Under bounce-back the y-shards run collide_stream_multistep_gated with the
+global walls at the rows the rank holds; the walls block the ghost rows
+that the ring wraps onto the wall shards.
+
 The cavity runs on a (dy, 1) mesh of y-shards. Its per-step paths
 (make_fused_sharded_cavity_step, _rollout) exchange 1-row strips of f, and
 in stored mode of the macros, and run collide_stream_cavity_halo or
@@ -50,6 +59,8 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import BC, CavityConfig, PlasmaConfig, PoissonSolver
+from ..kernels.fused_multistep import (collide_stream_multistep,
+                                       collide_stream_multistep_gated)
 from ..kernels.fused_cavity import (collide_stream_cavity_halo,
                                     collide_stream_cavity_halo_lean,
                                     collide_stream_cavity_multistep_gated)
@@ -203,6 +214,145 @@ def make_fused_sharded_step_auto(cfg: PlasmaConfig, n: int,
     make = (make_fused_sharded_step if shape[1] == 1
             else make_fused_sharded_step_2d)
     return make(cfg, mesh), mesh, lambda state: shard_state(state, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the plasma's windows
+# ---------------------------------------------------------------------------
+
+def multistep_plan(cfg: PlasmaConfig, shape: Tuple[int, int]) -> dict:
+    """The refusals of the sharded windows on an (ndy, ndx) mesh, in the
+    JAX package's words, and what a window needs: K, the shard's rows,
+    bounce (the gated kernel) and kill (E zeroed after a window).
+    ndx == 1 is make_fused_sharded_multistep_rollout's y-shards: NONE under
+    either wall type, or FFT + bounce-back (the reference's no-op solve,
+    E constant). ndx > 1 is _rollout_2d's tiles: NONE + periodic only. The
+    TPU's 8-row alignment rules (K % 8, NY % 8n) are dropped: the CUDA
+    kernel takes any band. NY (NX) must divide by ndy (ndx), and K must not
+    exceed a shard's rows (columns, on tiles): one ring hop brings no
+    deeper ghost."""
+    ndy, ndx = shape
+    K = int(getattr(cfg, "multistep", 0))
+    if K <= 0:
+        raise ValueError(f"sharded multistep needs cfg.multistep = K >= 1, "
+                         f"got {K}")
+    bounce = cfg.bc == BC.BOUNCE_BACK
+    if ndx == 1:
+        if not (cfg.poisson == PoissonSolver.NONE
+                or (bounce and cfg.poisson == PoissonSolver.FFT)):
+            raise ValueError("sharded multistep needs a window-constant E: "
+                             "NONE under either BC, or FFT + bounce-back "
+                             "(the no-op solve); other solvers run per-step "
+                             "on the sharded paths")
+    elif cfg.poisson != PoissonSolver.NONE or bounce:
+        raise ValueError("2-D sharded multistep is NONE + periodic only (the "
+                         "gated kernel's x-wall fixups are unconditional; "
+                         "bounce-back 2-D meshes run the per-step paths)")
+    if cfg.NY % ndy:
+        raise ValueError(f"NY={cfg.NY} must be divisible by {ndy}")
+    if cfg.NX % ndx:
+        raise ValueError(f"NX={cfg.NX} must be divisible by {ndx}")
+    rows, cols = cfg.NY // ndy, cfg.NX // ndx
+    if K > rows or (ndx > 1 and K > cols):
+        raise ValueError(f"multistep K={K} exceeds rows/shard={rows} or "
+                         f"cols/shard={cols}; the one-hop ghost exchange "
+                         f"needs K <= both (smaller K or fewer devices)")
+    check_supported(cfg)
+    kill = (cfg.poisson == PoissonSolver.NONE
+            and cfg.compat.none_solver_kills_external_field)
+    return dict(K=K, rows=rows, bounce=bounce, kill=kill)
+
+
+def _window_rollout(mesh: DeviceMesh, n: int, plan: dict, ext: Callable,
+                    run: Callable
+                    ) -> Callable[[PlasmaState], PlasmaState]:
+    """floor(n / K) windows of K steps and one of the remainder, each on
+    K-deep slabs: ext(arrays) -> the extended (f, g, Ex, Ey), run(fe, ge,
+    Exe, Eye, k) -> (fe, ge) after k steps, cut to the block here."""
+    K, kill = plan["K"], plan["kill"]
+    cut = (slice(K, -K), slice(K, -K) if mesh_shape(mesh)[1] > 1
+           else slice(None))
+    windows = [K] * (n // K) + ([n % K] if n % K else [])
+
+    def rollout(state: PlasmaState) -> PlasmaState:
+        f, g, Ex, Ey = state.f, state.g, state.Ex, state.Ey
+        for k in windows:
+            fe, ge = run(*ext((f, g, Ex, Ey)), k)
+            f, g = (t[(..., *cut)].contiguous() for t in (fe, ge))
+            if kill:
+                Ex, Ey = torch.zeros_like(Ex), torch.zeros_like(Ey)
+        return PlasmaState(f=f, g=g, Ex=Ex, Ey=Ey, phi=state.phi,
+                           step=state.step + n)
+
+    return rollout
+
+
+def _slabs(arrays, mesh: DeviceMesh, axis: str, K: int, dim: int):
+    """Each array extended along dim (-2: rows, -1: columns) by the K-deep
+    slabs of its ring neighbours on `axis`: [behind's last K, own, ahead's
+    first K]."""
+    lo = ring_shift([a.narrow(dim, a.shape[dim] - K, K) for a in arrays],
+                    mesh, axis, 1)
+    hi = ring_shift([a.narrow(dim, 0, K) for a in arrays], mesh, axis, -1)
+    return [torch.cat(t, dim=dim) for t in zip(lo, arrays, hi)]
+
+
+def make_fused_sharded_multistep_rollout(
+        cfg: PlasmaConfig, mesh: DeviceMesh, n: int
+) -> Callable[[PlasmaState], PlasmaState]:
+    """n plasma steps in windows of K = cfg.multistep on a (dy, 1) mesh of
+    y-shards (multistep_plan's rules). Each window sends the shard's K
+    edge rows of f, g, Ex and Ey to its dy neighbours (ring), concatenates
+    [below, shard, above] and runs K steps on the extended (rows + 2K, NX)
+    block in one launch: collide_stream_multistep under periodic walls,
+    collide_stream_multistep_gated under bounce-back, with the bottom wall
+    at row K on the first rank and the top wall at row K + rows - 1 on the
+    last (one rank holds both). Step 1 collides with the state's E; under
+    the NONE quirk later steps see 0 and E is zeroed after the window."""
+    ndy, ndx = mesh_shape(mesh)
+    if ndx != 1:
+        raise ValueError("sharded multistep is 1-D (dy) only; got "
+                         f"nontrivial axes ['{AXIS_X}']")
+    plan = multistep_plan(cfg, (ndy, 1))
+    K, rows = plan["K"], plan["rows"]
+    phys = dict(_phys(cfg), kill_field=plan["kill"])
+    idx = mesh.get_local_rank(AXIS_Y)
+    wall_rows = (K if idx == 0 else -1, K + rows - 1 if idx == ndy - 1
+                 else -1)
+
+    def run(fe, ge, Exe, Eye, k):
+        if plan["bounce"]:
+            return collide_stream_multistep_gated(fe, ge, Exe, Eye, wall_rows,
+                                                  k_steps=k, **phys)
+        return collide_stream_multistep(fe, ge, Exe, Eye, k_steps=k, **phys)
+
+    return _window_rollout(mesh, n, plan,
+                           lambda a: _slabs(a, mesh, AXIS_Y, K, -2), run)
+
+
+def make_fused_sharded_multistep_rollout_2d(
+        cfg: PlasmaConfig, mesh: DeviceMesh, n: int
+) -> Callable[[PlasmaState], PlasmaState]:
+    """n plasma steps in windows of K = cfg.multistep on a (dy, dx) mesh of
+    tiles, NONE + periodic (multistep_plan's rules). Each window sends the
+    tile's K-row slabs along dy, then the K-column slabs of the extended
+    arrays along dx, which carry the diagonal neighbours' K x K corners,
+    and runs collide_stream_multistep K steps on the (rows + 2K, cols + 2K)
+    block. With dx == 1 the x phase is skipped, as in the JAX package: the
+    tile spans the grid's width and wraps in x itself."""
+    ndy, ndx = mesh_shape(mesh)
+    plan = multistep_plan(cfg, (ndy, ndx))
+    K = plan["K"]
+    phys = dict(_phys(cfg), kill_field=plan["kill"])
+
+    def ext(arrays):
+        arrays = _slabs(arrays, mesh, AXIS_Y, K, -2)
+        return _slabs(arrays, mesh, AXIS_X, K, -1) if ndx > 1 else arrays
+
+    def run(fe, ge, Exe, Eye, k):
+        return collide_stream_multistep(fe, ge, Exe, Eye, k_steps=k, **phys)
+
+    return _window_rollout(mesh, n, plan, ext, run)
 
 
 # ---------------------------------------------------------------------------

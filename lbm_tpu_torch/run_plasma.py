@@ -14,6 +14,9 @@ CSV.
         --f64 --poisson FFT --debug-variant --debug-dump   # C++ dump format
     torchrun --nproc-per-node 2 scripts/run_plasma_torch.py --device cpu \
         --shard 2 --nx 32 --ny 32 --steps 3                # 2 ranks, gloo
+    torchrun --nproc-per-node 2 scripts/run_plasma_torch.py --device cpu \
+        --shard 2 --multistep 4 --nx 32 --ny 32 --steps 10 \
+        --bc bounceback --poisson NONE                     # sharded windows
 
 Defaults: --backend fused (the CUDA collide+stream kernel; GS/SOR/NPS
 solve in the CUDA solve kernel) on --device cuda. --multistep K runs K
@@ -27,7 +30,10 @@ stage of every step in its dump format (grids with NX < 11; the staged plain
 step). --shard N runs under torchrun --nproc-per-node N: each rank holds one
 block of the lattice (parallel/fused_sharded picks the mesh), on
 cuda:LOCAL_RANK over NCCL, or over gloo with --device cpu; the probes go to
-rank 0 in one collective a step, and rank 0 alone writes the CSVs.
+rank 0 in one collective a step (a window), and rank 0 alone writes the
+CSVs. --shard N --multistep K runs K-step windows on an (N, 1) mesh of
+y-shards with K-row ghost slabs (NONE under either wall type, or FFT +
+bounce-back; --shard 1 allowed).
 main(argv) returns a summary dict (the probe series, on rank 0 under
 --shard, and each kernel's launch count included).
 """
@@ -55,8 +61,10 @@ KERNELS = {"collide_stream": fused_step, "fused_collide": collide_pallas,
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches so far: KERNELS' and the halo kernels'."""
+    """Every kernel's launches so far: KERNELS', the gated window's and the
+    halo kernels'."""
     return {**{k: m.LAUNCHES for k, m in KERNELS.items()},
+            "collide_stream_multistep_gated": fused_multistep.GATED_LAUNCHES,
             **fused_step.HALO_LAUNCHES}
 
 
@@ -102,7 +110,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="shard the lattice over N ranks (run under torchrun "
                         "--nproc-per-node N): the halo-exchange step of "
                         "parallel.fused_sharded.make_fused_sharded_step_auto "
-                        "(periodic walls, FFT or NONE)")
+                        "(periodic walls, FFT or NONE); with --multistep K, "
+                        "K-row ghost windows on an (N, 1) mesh "
+                        "(make_fused_sharded_multistep_rollout: NONE, or "
+                        "FFT + bounce-back)")
     p.add_argument("--out", default=os.path.join("build", "output", "torch"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
@@ -198,13 +209,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.shard and staged is None:
         own_group = not torch.distributed.is_initialized()
         device = pmesh.init_distributed(device)
-        step, m, shard_fn = fused_sharded.make_fused_sharded_step_auto(
-            cfg, args.shard, device.type)
+        if cfg.multistep:
+            m = pmesh.make_mesh((args.shard, 1), device.type)
+            # one rollout per window length, as the single-device branch
+            rollouts = {k: fused_sharded.make_fused_sharded_multistep_rollout(
+                cfg, m, k) for k in {stride, cfg.nsteps % stride} if k}
+            what = "sharded multistep"
+        else:
+            step, m, _ = fused_sharded.make_fused_sharded_step_auto(
+                cfg, args.shard, device.type)
+            rollouts, what = {1: step}, "sharded"
         if rank0:
-            print(f"sharded over mesh {mesh_shape_of(m)}")
+            print(f"{what} over mesh {mesh_shape_of(m)}")
         # each rank builds the initial state and keeps its block
-        state = shard_fn(plasma.init_state(cfg, device))
-        rollouts = {1: step}
+        state = sharding.shard_state(plasma.init_state(cfg, device), m)
         rec = probes.ShardedProbeRecorder(cfg.NX, cfg.NY, device,
                                           *sharding.block(
                                               cfg, m,
@@ -286,16 +304,19 @@ def mesh_shape_of(m) -> dict:
 
 
 def _check_shard(args: argparse.Namespace, cfg: C.PlasmaConfig) -> None:
-    """Refuse what --shard cannot run, before any process group starts."""
-    if args.multistep:
-        raise SystemExit("--shard with --multistep: sharded windows are "
-                         "ROADMAP Queue 1 item 14 (e)")
+    """Refuse what --shard cannot run, before any process group starts:
+    the windows' rules on an (N, 1) mesh under --multistep (as
+    scripts/run_plasma.py:194-218), else the auto mesh's."""
     world = int(os.environ.get("WORLD_SIZE", 1))
     if world != args.shard:
         raise SystemExit(f"--shard {args.shard}: the world has {world} "
                          f"ranks; run under torchrun --nproc-per-node "
                          f"{args.shard}")
     try:
-        fused_sharded.pick_mesh(cfg, args.shard)
+        if cfg.multistep:
+            fused_sharded.multistep_plan(cfg, (args.shard, 1))
+        else:
+            fused_sharded.pick_mesh(cfg, args.shard)
     except (ValueError, NotImplementedError) as e:
-        raise SystemExit(f"--shard: {e}")
+        raise SystemExit(f"--shard{' --multistep' if cfg.multistep else ''}"
+                         f": {e}")

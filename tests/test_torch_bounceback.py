@@ -208,6 +208,7 @@ def test_cli_runs_sor_bounceback_on_cpu(tmp_path):
     assert summary["launches"] == {"collide_stream": 0, "fused_collide": 0,
                                    "solve_iter": 0,
                                    "collide_stream_multistep": 0,
+                                   "collide_stream_multistep_gated": 0,
                                    "fft_solve": 0, "collide_stream_halo": 0,
                                    "collide_stream_halo2d": 0}
     with open(tmp_path / "simulation_time_plasma_details.csv") as fh:

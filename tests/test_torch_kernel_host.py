@@ -730,3 +730,184 @@ def test_fft_solve_header_matches_plain_version(host_fft, shape):
         err = max(float(np.abs(g - w.numpy()).max())
                   for g, w in zip((ex, ey), want))
         assert err < 1e-5 * scale, f"seed {seed}: {err / scale:.3e} of scale"
+
+
+_WINDOW_HOST = r"""
+#include <utility>
+#include <vector>
+
+#include "multistep_site.cuh"
+
+// fused_multistep.cu's constant-E window, site by site: decode, K steps of
+// collide_stream_site ping-ponging in T, encode. The threads of a step
+// run in no order on the card; here odd steps walk the sites backwards,
+// so a slot that two sites write shows whichever order lets the wrong one
+// win.
+template <typename S, typename T, bool DELTA, bool FAST>
+void run_window(const void* f, const void* g, const void* Ex, const void* Ey,
+                void* fo, void* go, const window::Band& band, int K, int kill,
+                const HostParams& hp) {
+  const Params<T> p = cast_params<T>(hp);
+  T bg[kQ];
+  for (int i = 0; i < kQ; ++i) bg[i] = static_cast<T>(hp.neutral_ref * w_of(i));
+  const int64_t plane = static_cast<int64_t>(band.NY) * band.NX;
+  const int64_t n = kS * kQ * plane;
+  std::vector<T> a(n), b(n), c(n), d(n);
+  for (int64_t e = 0; e < n; ++e) {
+    a[e] = Io<S, T>::load(static_cast<const S*>(f) + e);
+    b[e] = Io<S, T>::load(static_cast<const S*>(g) + e);
+  }
+  for (int k = 0; k < K; ++k) {
+    for (int64_t e = 0; e < plane; ++e) {
+      const int64_t site = (k & 1) ? plane - 1 - e : e;
+      window::collide_stream_site<T, DELTA, FAST>(
+          band, a.data(), b.data(), c.data(), d.data(), static_cast<const T*>(Ex),
+          static_cast<const T*>(Ey), kill && k > 0, nullptr, site, p, bg);
+    }
+    std::swap(a, c);
+    std::swap(b, d);
+  }
+  for (int64_t e = 0; e < n; ++e) {
+    Io<S, T>::store(static_cast<S*>(fo) + e, a[e]);
+    Io<S, T>::store(static_cast<S*>(go) + e, b[e]);
+  }
+}
+
+#define RUN_WINDOW(S, T, FAST)                                                \
+  (delta ? run_window<S, T, true, FAST>(f, g, Ex, Ey, fo, go, band, K, kill, \
+                                        *hp)                                  \
+         : run_window<S, T, false, FAST>(f, g, Ex, Ey, fo, go, band, K, kill,\
+                                         *hp))
+
+extern "C" int host_window(int mode, int delta, const void* f, const void* g,
+                           const void* Ex, const void* Ey, void* fo, void* go,
+                           const int* geom, int K, int kill,
+                           const HostParams* hp) {
+  const window::Band band{geom[0], geom[1], geom[2], geom[3], geom[4]};
+  if (mode == 0) RUN_WINDOW(double, double, false);
+#ifndef F64_ONLY
+  else if (mode == 1) RUN_WINDOW(float, float, false);
+  else RUN_WINDOW(__nv_bfloat16, float, true);
+#endif
+  return 0;
+}
+"""
+
+
+def _host_window(tmp_path_factory, name, csrc=CSRC, flags=()):
+    so = _build_host(tmp_path_factory, name, _WINDOW_HOST, _STUBS, csrc,
+                     flags)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    so.host_window.argtypes = [ci, ci, *[vp] * 7, ci, ci, vp]
+    so.host_window.restype = ci
+    return so
+
+
+@pytest.fixture(scope="module")
+def host_window(tmp_path_factory):
+    return _host_window(tmp_path_factory, "host_window")
+
+
+_WINDOW_MODES = [(torch.float64, "native", False),
+                 (torch.float64, "native", True),
+                 (torch.float32, "native", True),
+                 (torch.float32, "bf16", True)]
+# (label, shards, shard) of a 20x11 bounce-back grid (NY x NX): the whole
+# grid (walls at rows 0 and NY-1), the one rank's band that holds both
+# walls, the bottom and top shards of a cut in 2 and the middle shard of a
+# cut in 3 (neither wall: periodic in y with the x walls); "periodic" is
+# the whole grid without walls, "one row" the whole grid with both walls
+# on row 5
+_WINDOW_BANDS = [("whole", 1, None), ("both", 1, 0), ("bottom", 2, 0),
+                 ("top", 2, 1), ("middle", 3, 1), ("periodic", 1, None),
+                 ("one row", 1, None)]
+_WINDOW_K = 3
+
+
+def _window_mismatches(so, modes):
+    """[(mode, band, kill, output)] where the host build of a K = 3 window
+    differs from its plain version: collide_stream_multistep_gated_
+    reference on each band (ghost rows included), and on the whole grid
+    collide_stream_multistep_reference, bounce-back or periodic."""
+    from lbm_tpu_torch.config import BC
+    from lbm_tpu_torch.kernels import fused_multistep as fm
+    bad = []
+    K = _WINDOW_K
+    for dtype, storage, delta in modes:
+        cfg = PlasmaConfig(NX=11, NY=20, dtype=dtype, storage=storage,
+                           neutral_delta=delta, bc=BC.BOUNCE_BACK)
+        u = cfg.units()
+        phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
+                    m_i=u.m_i, cs2=u.cs2, kb=u.kb,
+                    neutral_ref=u.rho_n_init if delta else 0.0)
+        full = _seeded2d(cfg, 2011)
+        for label, n, shard in _WINDOW_BANDS:
+            if shard is None:
+                arrays, walls = full, (5, 5) if label == "one row" else (0, 19)
+            else:
+                R = 20 // n
+                arrays, walls = fm.window_inputs(
+                    full, slice(shard * R, (shard + 1) * R), K)
+            f, g, ex, ey = arrays
+            for kill in (True, False):
+                kw = dict(**phys, k_steps=K, kill_field=kill)
+                if label in ("whole", "periodic"):
+                    want = fm.collide_stream_multistep_reference(
+                        *arrays, bounce=label == "whole", **kw)
+                else:
+                    want = fm.collide_stream_multistep_gated_reference(
+                        *arrays, walls, **kw)
+                got = (torch.empty_like(f), torch.empty_like(g))
+                geom = (ctypes.c_int * 5)(*ex.shape, int(label != "periodic"),
+                                          *walls)
+                hp = host_params(**phys)
+                so.host_window(_MODES[(f.dtype, dtype)], int(delta),
+                               *(t.data_ptr() for t in (f, g, ex, ey, *got)),
+                               geom, K, int(kill), ctypes.addressof(hp))
+                bad += [(f"{storage} {dtype} delta={delta}", label, kill, nm)
+                        for nm, a, b in zip(("f", "g"), got, want)
+                        if not torch.equal(a, b)]
+    return bad
+
+
+def test_window_site_code_matches_plain_versions_bitwise(host_window):
+    """csrc/multistep_site.cuh, one K = 3 window of the constant-E mode,
+    against the plain versions, bit for bit, in f64, f32 and bf16 storage,
+    with and without neutral-delta storage and the kill quirk: the gated
+    window on bands that hold both walls, one wall or neither (the whole
+    extended band, ghost rows included) and both walls on one row, and the
+    whole-grid window with walls at rows 0 and NY-1 and without walls."""
+    assert _window_mismatches(host_window, _WINDOW_MODES) == []
+
+
+# one-line changes of multistep_site.cuh, each of which the bitwise hold
+# must catch: (what it breaks, the line as it is, the line changed)
+_WINDOW_MUTATIONS = {
+    "corner winner": (
+        "      return m | bit(s.yb && s.xin, 4u) | bit(s.xr && !s.dnt, 8u) |",
+        "      return m | bit(s.yb && s.xin, 4u) | bit(s.xr && !s.dnt && "
+        "!s.dnb, 8u) |"),
+    "wall-row suppression": (
+        "  const bool pass = !(cx == 1 && s.xr) && !(cx == -1 && s.xl) && "
+        "!(cy == 1 && s.upb) && !(cy == -1 && s.dnt);",
+        "  const bool pass = !(cx == 1 && s.xr) && !(cx == -1 && s.xl);"),
+    "hole row": (
+        "             bit((s.yb && s.xr) || (!s.yb && s.xl && s.yt), 16u);",
+        "             bit((s.yb && s.xr) || (!s.yb && s.xl && s.yb), 16u);"),
+}
+
+
+@pytest.mark.parametrize("what", list(_WINDOW_MUTATIONS))
+def test_window_site_code_mutations_fail(tmp_path_factory, what):
+    before, after = _WINDOW_MUTATIONS[what]
+    csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_"))
+    for header in CSRC.glob("*.cuh"):
+        text = header.read_text()
+        if header.name == "multistep_site.cuh":
+            assert text.count(before) == 1, f"{what}: line not found"
+            text = text.replace(before, after)
+        (csrc / header.name).write_text(text)
+    so = _host_window(tmp_path_factory, "window_mutant", csrc,
+                      ["-DF64_ONLY"])
+    assert _window_mismatches(so, _WINDOW_MODES[:2]), (
+        f"the '{what}' mutation passed the bitwise hold")

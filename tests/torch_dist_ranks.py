@@ -1,6 +1,7 @@
 """Rank bodies of tests/test_torch_sharded.py,
-tests/test_torch_cavity_sharded.py and tests/test_torch_sharded3d.py (not
-collected), and spawn(), which runs them.
+tests/test_torch_cavity_sharded.py, tests/test_torch_sharded3d.py and
+tests/test_torch_multistep_sharded.py (not collected), and spawn(), which
+runs them.
 
     python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
 
@@ -23,8 +24,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 
-from lbm_tpu_torch.config import (CavityConfig, PlasmaConfig,  # noqa: E402
-                                  PoissonSolver)
+from lbm_tpu_torch.config import (BC, CavityConfig,  # noqa: E402
+                                  PlasmaConfig, PoissonSolver)
 from lbm_tpu_torch.models import cavity, plasma, plasma3d  # noqa: E402
 from lbm_tpu_torch.parallel import fused_sharded, mesh, sharding  # noqa: E402
 
@@ -302,8 +303,87 @@ def column_runs(out_dir: str) -> None:
         torch.save(results, os.path.join(out_dir, "result.pt"))
 
 
+# the 2-D plasma's windows (K = 8) by world size: (label, mesh shape, NY,
+# NX, solver, bc, dtype, storage, neutral_delta, kill quirk, steps); the
+# JAX package's shapes (tests/test_fused_multistep.py:269-297, 559-620)
+WINDOW_K = 8
+WINDOW_CASES = {
+    4: [("none_keep_delta", (4, 1), 64, 24, "NONE", "periodic", F64,
+         "native", True, False, 19),
+        ("none_bb_16", (4, 1), 64, 24, "NONE", "bounceback", F64, "native",
+         False, True, 16),
+        ("bf16_delta_bb", (4, 1), 64, 24, "NONE", "bounceback", F32, "bf16",
+         True, True, 19),
+        ("tile22", (2, 2), 32, 16, "NONE", "periodic", F64, "native", False,
+         True, 19)],
+    2: [("none_kill", (2, 1), 64, 24, "NONE", "periodic", F64, "native",
+         False, True, 19),
+        ("none_bb_19", (2, 1), 64, 24, "NONE", "bounceback", F64, "native",
+         False, True, 19),
+        ("fft_bb", (2, 1), 64, 24, "FFT", "bounceback", F64, "native", False,
+         True, 19),
+        ("bf16_delta", (2, 1), 64, 24, "NONE", "periodic", F32, "bf16", True,
+         True, 19)],
+}
+# the windowed CLI on two ranks, and a K beyond a shard's 16 rows
+WINDOW_CLI = ["--device", "cpu", "--multistep", "4", "--nx", "32", "--ny",
+              "32", "--steps", "10", "--bc", "bounceback", "--poisson",
+              "NONE", "--f64"]
+
+
+def window_config(NY, NX, solver, bc, dtype, storage, delta, kill
+                  ) -> PlasmaConfig:
+    cfg = PlasmaConfig(NX=NX, NY=NY, dtype=dtype, storage=storage,
+                       neutral_delta=delta, poisson=PoissonSolver[solver],
+                       bc=BC.PERIODIC if bc == "periodic" else BC.BOUNCE_BACK,
+                       backend="fused", multistep=WINDOW_K)
+    return dataclasses.replace(cfg, compat=dataclasses.replace(
+        cfg.compat, none_solver_kills_external_field=kill))
+
+
+def window_runs(out_dir: str) -> None:
+    """Every WINDOW_CASES case of this world size from the initial state
+    through its sharded windows (y-shards on (n, 1), tiles otherwise); on
+    two ranks also the windowed CLI (its printed lines kept) and its
+    refusal of a K deeper than a shard. Rank 0 saves the gathered states."""
+    import contextlib
+    import io
+
+    from lbm_tpu_torch import run_plasma
+
+    n = dist.get_world_size()
+    results = {}
+    for label, shape, *grid, steps in WINDOW_CASES[n]:
+        cfg = window_config(*grid)
+        m = mesh.make_mesh(shape, "cpu")
+        make = (fused_sharded.make_fused_sharded_multistep_rollout
+                if shape[1] == 1 else
+                fused_sharded.make_fused_sharded_multistep_rollout_2d)
+        state = sharding.shard_state(plasma.init_state(cfg, "cpu"), m)
+        state = make(cfg, m, steps)(state)
+        results[label] = sharding.gather_state(state, m)
+    if n == 2:
+        m = mesh.make_mesh((2, 1), "cpu")
+        try:
+            run_plasma.main([*WINDOW_CLI, "--shard", "2", "--multistep",
+                             "20", "--out", os.path.join(out_dir, "refused")])
+            results["refused"] = None
+        except SystemExit as e:
+            results["refused"] = str(e)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            summary = run_plasma.main([*WINDOW_CLI, "--shard", "2", "--out",
+                                       os.path.join(out_dir, "cli")])
+        results["cli"] = {k: summary[k] for k in (
+            "launches", "probes", "mesh", "n_devices", "finite", "state")}
+        results["cli"]["printed"] = printed.getvalue()
+    if dist.get_rank() == 0:
+        torch.save(results, os.path.join(out_dir, "result.pt"))
+
+
 SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli,
-             "cavity": cavity_runs, "column": column_runs}
+             "cavity": cavity_runs, "column": column_runs,
+             "windows": window_runs}
 
 
 def main(argv) -> None:
