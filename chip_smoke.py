@@ -14,7 +14,11 @@ phase fails:
   3b. solve kernel vs plain sweeps: GS, SOR (omega 1.8) and NPS, interior-
      only and periodic, f64 and f32, at 37x53, 200x200 and 1024x1024, with
      tol 0 / 60 sweeps and with tol 1e-8 / max 5000 sweeps on the rho_q of
-     a step, and a phi0 holding a NaN: phi and the sweep count bitwise;
+     a step, a phi0 holding a NaN and max_iter 0 (37x53); f32 at 1000^2
+     (ragged tiles), 2048^2 and the first square past the tiled loop's
+     shared-memory fit (tol 0 / 60 sweeps): phi and the sweep count
+     bitwise, each plane's loop (tiled or streaming) printed, and both
+     sides of the size dispatch run;
   3c. collide-only kernel vs its plain version: f64 and f32, with and
      without neutral-delta storage, at 37x53 and 200x200, at phase 3's
      tolerances;
@@ -28,11 +32,13 @@ phase fails:
      kernels per step;
   5. real size: 2048^2 in f32 and in bf16 + neutral-delta storage, 5 warm-up
      and 30 timed steps (CUDA events); the state must stay finite;
-  5b. real sizes of the other solvers and walls: 1024^2 f32 SOR +
-     bounce-back + delta (fused), 256^2 f32 GS (fused), 4096^2 bf16 + delta
-     NONE (fused), 2048^2 f32 FFT (pallas); ms/step, MLUPS, each kernel's
-     ms and its plain version's, sweeps per solve; the state must stay
-     finite;
+  5b. real sizes of the other solvers and walls: 1024^2 and 2048^2 f32
+     SOR + bounce-back + delta (fused), 256^2 f32 GS (fused), 4096^2 bf16 +
+     delta NONE (fused), 2048^2 f32 FFT (pallas); ms/step, MLUPS, each
+     kernel's ms and its plain version's, sweeps per solve; the solve's
+     loop, us a sweep beside its barrier floor (the tiled loop's grid
+     barrier and error reduction with no stencil work) and its flop bound;
+     the state must stay finite;
   6a. cavity kernels vs their plain versions: stored, lean and multistep
      (K = 1, 4, 17 from step 8, across the lid ramp) on a seeded state
      warmed past the ramp, f64, f32 and bf16 storage, at 37x53 and
@@ -87,12 +93,15 @@ phase fails:
      (ops.poisson.solve_fft_efield) at 2e-5, the float64 answer at 1e-5,
      and the phi route (solve_fft + efield_periodic) at 2e-5 on the small
      grids (printed elsewhere); at 2048^2 and 4096^2 the kernel's device ms
-     beside the phi route's; a 32768-long axis is refused;
+     and its three passes' (rows_forward_pair, panel_solve,
+     rows_inverse_tiled, torch.profiler) beside the phi route's and the
+     44 B/site the passes move; a 32768-long axis is refused;
   9b. the 2-D fused step with fft_engine="pallas" at 2048^2, f32 and bf16 +
      delta, 5 warm-up + 30 timed steps: one solve launch a step (counts
-     reset before the run), ms/step, MLUPS, the kernel's device ms beside
-     its bound, the plain version's and the two library routes'; the state
-     finite, phi never formed, the kernel held on the end state's rho_q;
+     reset before the run), ms/step, MLUPS, the kernel's device ms and its
+     passes' beside its bound, the plain version's and the two library
+     routes'; the state finite, phi never formed, the kernel held on the
+     end state's rho_q;
   9c. the --debug-variant --debug-dump CLI at 8x8 f64, FFT, on the card,
      against the C++ debug dump ref_dump_solver3 at rtol 3e-6 / atol
      max(3e-6*scale, 1e-15), every field of all 25 (step, stage) pairs.
@@ -436,6 +445,27 @@ def _bits(t):
                    2: torch.int16}[t.element_size()])
 
 
+# phase 3b's planes: (NY, NX, dtypes, whether to add the tol-1e-8 solve of a
+# step's rho_q); 1000^2 cuts into ragged tiles, and the past-fit plane (the
+# first square past the largest the tiled loop holds in f32) is added at run
+# time
+SOLVE_SHAPES = [(37, 53, ("f64", "f32"), True),
+                (200, 200, ("f64", "f32"), True),
+                (1000, 1000, ("f32",), False),
+                (1024, 1024, ("f64", "f32"), True),
+                (2048, 2048, ("f32",), False)]
+
+
+def _past_tiled_fit(dtype):
+    """The first n (a multiple of 8 from 2048) whose n x n interior-only
+    solve takes the streaming loop, by the kernel's own size test."""
+    from lbm_tpu_torch.kernels import poisson_iter
+    n = 2048
+    while poisson_iter.path(n, n, dtype, True) == "tiled":
+        n += 8
+    return n
+
+
 def phase_solve_kernel():
     """Phase 3b; returns the worst max|err| (0: every case is bitwise)."""
     import torch
@@ -445,29 +475,39 @@ def phase_solve_kernel():
 
     print("== phase 3b: solve kernel vs plain sweeps, bitwise")
     device = torch.device("cuda")
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
     kinds = [("gs", None), ("gs", 1.8), ("nps", None)]
-    for ny, nx in ((37, 53), (200, 200), (1024, 1024)):
-        for dtype in (torch.float64, torch.float32):
+    past = _past_tiled_fit(torch.float32)
+    paths = set()
+    for ny, nx, names, with_step in [*SOLVE_SHAPES,
+                                     (past, past, ("f32",), False)]:
+        for dtype in (dtypes[d] for d in names):
             rng = np.random.default_rng(ny * nx)
             rho = 0.1 * rng.random((ny, nx))
             rho -= rho.mean()
             seeded = (torch.as_tensor(0.05 * rng.random((ny, nx)),
                                       dtype=dtype, device=device),
                       torch.as_tensor(rho, dtype=dtype, device=device))
-            # the rho_q of a step from a seeded state, solved from phi = 0
-            cfg = PlasmaConfig(NX=nx, NY=ny, dtype=dtype, neutral_delta=True)
-            st = _seeded_state(cfg, device, seed=ny + nx, warm_steps=1)
-            rho_q = fused_step.collide_stream(st.f, st.g, st.Ex, st.Ey,
-                                              **phys_of(cfg))[2]
-            runs = [("seeded", seeded, 60, 0.0),
-                    ("step", (torch.zeros_like(rho_q), rho_q), 5000, 1e-8)]
+            runs = [("seeded", seeded, 60, 0.0)]
+            if with_step:
+                # the rho_q of a step from a seeded state, solved from 0
+                cfg = PlasmaConfig(NX=nx, NY=ny, dtype=dtype,
+                                   neutral_delta=True)
+                st = _seeded_state(cfg, device, seed=ny + nx, warm_steps=1)
+                rho_q = fused_step.collide_stream(st.f, st.g, st.Ex, st.Ey,
+                                                  **phys_of(cfg))[2]
+                runs.append(("step", (torch.zeros_like(rho_q), rho_q), 5000,
+                             1e-8))
             if (ny, nx) == (37, 53):
                 nan_phi = seeded[0].clone()
                 nan_phi[ny // 2, nx // 2] = float("nan")
                 runs.append(("NaN", (nan_phi, seeded[1]), 5000, 1e-8))
+                runs.append(("max_iter 0", seeded, 0, 1e-8))
             line = []
             for kind, omega in kinds:
                 for interior in (False, True):
+                    way = poisson_iter.path(ny, nx, dtype, interior, kind)
+                    paths.add(way)
                     for label, (phi0, rq), max_iter, tol in runs:
                         spec = (kind, omega, max_iter, tol, interior)
                         got = poisson_iter.solve_iter(phi0, rq, spec=spec)
@@ -477,7 +517,7 @@ def phase_solve_kernel():
                         n_plain = poisson.LAST_SWEEPS
                         tag = (f"{kind}{'' if omega is None else '-sor'}/"
                                f"{'int' if interior else 'per'}/{label}")
-                        name = f"{ny}x{nx} {dtype} {tag}"
+                        name = f"{ny}x{nx} {dtype} {tag} ({way})"
                         require(n_kernel == n_plain, f"{name}: {n_kernel} "
                                 f"kernel sweeps vs {n_plain} plain")
                         require(label != "NaN" or n_kernel == 1,
@@ -489,8 +529,16 @@ def phase_solve_kernel():
                                                f"the plain sweeps, max|err| "
                                                f"{err:.3e}")
                         line.append(f"{tag} {n_kernel}")
-            print(f"{ny}x{nx} {str(dtype)[6:]}: bitwise; sweeps "
-                  + ", ".join(line))
+            ways = {poisson_iter.path(ny, nx, dtype, i, kd)
+                    for i in (False, True) for kd, _ in kinds}
+            print(f"{ny}x{nx} {str(dtype)[6:]} ({'/'.join(sorted(ways))}): "
+                  f"bitwise; sweeps " + ", ".join(line))
+            del seeded, runs
+            torch.cuda.empty_cache()
+    require(paths == {"tiled", "streaming"}, f"3b ran the loops {paths}; "
+            f"want both sides of the size dispatch")
+    print(f"the f32 tiled loop holds up to {past - 8}^2 (interior-only); "
+          f"{past}^2 takes the streaming loop")
     return 0.0
 
 
@@ -717,6 +765,8 @@ def phase_real_size_solvers():
     cells = [  # label, n, storage, delta, poisson, bc, backend, warm, steps
         ("1024^2 f32 SOR+bounceback+delta fused", 1024, "native", True,
          PoissonSolver.SOR, BC.BOUNCE_BACK, "fused", 2, 10),
+        ("2048^2 f32 SOR+bounceback+delta fused", 2048, "native", True,
+         PoissonSolver.SOR, BC.BOUNCE_BACK, "fused", 1, 3),
         ("256^2 f32 GS periodic fused", 256, "native", False,
          PoissonSolver.GS, BC.PERIODIC, "fused", 2, 10),
         ("4096^2 bf16+delta NONE periodic fused", 4096, "bf16", True,
@@ -770,8 +820,16 @@ def phase_real_size_solvers():
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
             bound, bound_by = _solve_bound_ms(spec, sweeps, n * n, f32)
-            parts.append(f"solve_iter {ms:.4f} ms for {sweeps} sweeps "
-                         f"({1e3 * ms / max(sweeps, 1):.3f} us/sweep; bound "
+            way = poisson_iter.path(n, n, f32, True, spec[0])
+            floor = "none (streaming loop)"
+            if way == "tiled":
+                floor_ms = _time_ms(lambda: poisson_iter.sweep_floor(
+                    n, n, f32, spec[0], True, sweeps, device), 3)
+                floor = f"{1e3 * floor_ms / max(sweeps, 1):.3f} us/sweep"
+            parts.append(f"solve_iter ({way}) {ms:.4f} ms for {sweeps} "
+                         f"sweeps ({1e3 * ms / max(sweeps, 1):.3f} us/sweep; "
+                         f"barrier floor {floor}; flop bound "
+                         f"{1e3 * bound / max(sweeps, 1):.3f} us/sweep, "
                          f"{bound:.4f} ms by {bound_by}; plain sweeps "
                          f"{plain_ms:.1f} ms, 1 call)")
             out.setdefault("solve_iter", (ms, plain_ms, bound, bound_by,
@@ -1601,7 +1659,11 @@ FFT_SHAPES = [(128, 128), (128, 256), (256, 128), (256, 256), (2048, 2048),
 FFT_PHI_GATE_SHAPES = {(128, 128), (128, 256), (256, 128), (256, 256),
                        (512, 256), (128, 512)}
 FFT_BYTES_PER_SITE = 12          # rho read, Ex and Ey written, f32
-FFT_PASS_BYTES_PER_SITE = 44     # three passes through a complex f32 scratch
+# the three passes through the tiled complex f32 scratch: rho in and the
+# scratch out (4 + 8), the panels in and out (8 + 8), the scratch in and Ex,
+# Ey out (8 + 8)
+FFT_PASS_BYTES_PER_SITE = 44
+FFT_PASSES = ("rows_forward_pair", "panel_solve", "rows_inverse_tiled")
 
 
 def _fft_bound_ms(ny, nx):
@@ -1675,9 +1737,16 @@ def phase_fft_kernel():
             phi_ms = _time_ms(lambda: poisson.efield_periodic(
                 poisson.solve_fft(rho)), 20)
             bound, bound_by = _fft_bound_ms(ny, nx)
+            passes = _pass_ms(lambda: fft_tpu.solve_fft_efield_tpu(rho), 20,
+                              FFT_PASSES)
             line += (f"; kernel {ms:.4f} ms (bound {bound:.4f} by "
-                     f"{bound_by}), solve_fft + efield_periodic "
-                     f"{phi_ms:.4f} ms")
+                     f"{bound_by}; passes " + ", ".join(
+                         f"{k} " + ("not measured" if v is None
+                                    else f"{v:.4f}")
+                         for k, v in passes.items())
+                     + f" ms against {FFT_PASS_BYTES_PER_SITE} B/site "
+                     f"{FFT_PASS_BYTES_PER_SITE * ny * nx / HBM_BYTES_PER_S * 1e3:.4f}"
+                     f" ms), solve_fft + efield_periodic {phi_ms:.4f} ms")
         print(f"{ny}x{nx} seeded rho: {line}")
     # the rho_q of a warm seeded 2048^2 state (two plain steps)
     cfg = PlasmaConfig(NX=2048, NY=2048, dtype=torch.float32,
@@ -1770,8 +1839,7 @@ def phase_fft_real_size():
         pass_ms = FFT_PASS_BYTES_PER_SITE * n * n / HBM_BYTES_PER_S * 1e3
         if storage == "native":
             passes = _pass_ms(lambda: fft_tpu.solve_fft_efield_tpu(rho_q),
-                              steps, ("rows_forward", "cols_solve",
-                                      "rows_inverse"))
+                              steps, FFT_PASSES)
             print("   the passes, torch.profiler: " + ", ".join(
                 f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
                 for k, v in passes.items()))

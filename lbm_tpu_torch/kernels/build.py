@@ -125,6 +125,11 @@ SIGNATURES = {
     # out, err_ring, sweeps, NY, NX, stream
     "lbm_solve_iter": [_CI, _CI, _CI, _CD, _CI, _CD, *[_VP] * 6, _CI, _CI,
                        _VP],
+    # dtype, kind, interior_only, NY, NX
+    "lbm_solve_iter_path": [_CI] * 5,
+    # dtype, kind, interior_only, sweeps, scratch, err_ring, sweeps_out, NY,
+    # NX, stream
+    "lbm_solve_iter_floor": [*[_CI] * 4, *[_VP] * 3, _CI, _CI, _VP],
     # mode, lean, f, rho, ux, uy, f_up, mac_up, f_dn, mac_dn, f_out, rho_out,
     # ux_out, uy_out, u_lid_dyn, tau, NY, NX, du, dd, b_row, l_row, stream
     "lbm_cavity_collide_stream": [_CI, _CI, *[_VP] * 12, _CD, _CD,

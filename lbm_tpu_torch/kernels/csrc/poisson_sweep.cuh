@@ -28,36 +28,19 @@
 
 #include <cstdint>
 
+#include "poisson_tile.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
 
 constexpr int kRing = 3;   // per-sweep error slots, cleared two sweeps ahead
 
-template <typename T>
-struct Bits;
-template <>
-struct Bits<float> {
-  using U = unsigned int;
-  static constexpr U kInf = 0x7f800000u;
-  static __device__ __forceinline__ U of(float v) { return __float_as_uint(v); }
-  static __device__ __forceinline__ float val(U u) { return __uint_as_float(u); }
-  static __device__ __forceinline__ float abs(float v) { return fabsf(v); }
-};
-template <>
-struct Bits<double> {
-  using U = unsigned long long;
-  static constexpr U kInf = 0x7ff0000000000000ull;
-  static __device__ __forceinline__ U of(double v) {
-    return static_cast<U>(__double_as_longlong(v));
-  }
-  static __device__ __forceinline__ double val(U u) {
-    return __longlong_as_double(static_cast<long long>(u));
-  }
-  static __device__ __forceinline__ double abs(double v) { return fabs(v); }
-};
-
-enum Kind { kGS = 0, kSOR = 1, kNPS = 2 };
+// the solver kinds and the error's bit patterns, shared with the tiled loop
+using ptile::Bits;
+using ptile::kGS;
+using ptile::kNPS;
+using ptile::kSOR;
 
 template <typename T>
 struct SweepArgs {
@@ -129,7 +112,7 @@ __device__ int sweep_loop(const SweepArgs<T>& a, SweepShared<T, THREADS>& sh,
           if (KIND == kSOR) v = a.one_minus_omega * p + a.omega * v;
         }
         dst[site] = v;
-        const U d = Bits<T>::of(Bits<T>::abs(v - p));
+        const U d = Bits<T>::of(v - p) & Bits<T>::kAbs;
         local = d > local ? d : local;
       }
       // block max, then one atomic a block into this sweep's slot

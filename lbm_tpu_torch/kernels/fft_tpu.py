@@ -9,8 +9,9 @@ by 1/(NY NX), so that Ex = Re and Ey = Im of one complex inverse transform;
 phi is never formed. Both axes are (power of two) * 128.
 
 On CUDA tensors the wrapper launches csrc/fft_solve.cu (three passes of
-radix-2 FFTs in shared memory, three stages a barrier, x bit-reversed
-between them; LAUNCHES counts one a solve) or raises. On CPU tensors it
+radix-16 FFTs in shared memory, four stages a barrier, two real rows a
+line in the first, x bit-reversed between them in a scratch tiled by
+column panels; LAUNCHES counts one a solve) or raises. On CPU tensors it
 runs the plain version, solve_fft_efield_reference: the JAX package's
 permuted four-step (solve_fft_efield_xla) in torch. Per axis, N = A * 128:
 radix-2 Stockham stages over A, a twiddle multiply, and a 128-point DFT as
@@ -280,11 +281,11 @@ def solve_fft_efield_reference(rho_q: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def kernel_tables(NY: int, NX: int) -> Tuple[np.ndarray, ...]:
     """The kernel's float32 tables (float64 cast once): the twiddles
-    exp(-2 pi i k/N), k < N/2, of x and y as (N/2, 2) (re, im), and the
+    exp(-2 pi i k/N), k < N, of x and y as (N, 2) (re, im), and the
     symbols (sin^2(pi k/N), sin(2 pi k/N)) of x and y as (N, 2), each row
     for the wavenumber that the kernel's bit-reversed layout holds there."""
     def twiddles(N):
-        w = np.exp(-2j * np.pi * np.arange(N // 2) / N)
+        w = np.exp(-2j * np.pi * np.arange(N) / N)
         return np.stack([w.real, w.imag], axis=1).astype(np.float32)
 
     def symbols(N):

@@ -10,6 +10,24 @@ counts kernel launches; LAST_SWEEPS holds the sweep count of the last
 solve, after a launch as a 0-dim int32 tensor on the device (reading it
 waits for the kernel).
 
+The kernel picks its loop by size (path() says which a solve takes):
+
+  * "tiled": a block an SM owns a tile of phi in shared memory for the
+    whole solve, with a ring of copies of its neighbours' sites one deep a
+    colour pass; each sweep reads the ring once, runs the colour passes in
+    place, writes the tile's border once, and meets one grid barrier.
+    Interior-only solves, or periodic ones with NX and NY even (where
+    in-place updates equal the plain sweeps), whose largest tile with its
+    ring fits a block's shared memory: on an H100 up to 2,672^2 in f32 and
+    1,872^2 in f64 (NPS, whose ring is twice as deep: 2,600^2 and
+    1,792^2).
+  * "streaming": every colour pass walks the whole plane between two
+    buffers and a grid barrier. Periodic solves with an odd NX or NY, and
+    planes past the tiles' size.
+
+Both are bitwise equal to the plain sweeps. This is a choice by size and
+parity, made before the launch; a launch that fails raises.
+
 Unlike the TPU kernel, which needs f32 and a grid that fits VMEM
 (<= 1024^2), this one takes f32 and f64 at any size that fits the card.
 """
@@ -51,6 +69,43 @@ def solve_iter_reference(phi0: torch.Tensor, rho_q: torch.Tensor, *,
     if kind == "gs":
         return poisson.solve_gs(phi0, rho_q, omega=omega, **kw)
     return poisson.solve_9point(phi0, rho_q, **kw)
+
+
+def path(NY: int, NX: int, dtype: torch.dtype, interior_only: bool,
+         kind: str = "gs") -> str:
+    """The loop the kernel runs an (NY, NX) solve of `kind` ("gs", also
+    SOR's, or "nps", whose ring is twice as deep) with on the current CUDA
+    device: "tiled" or "streaming"."""
+    code = build.load().lbm_solve_iter_path(
+        _DTYPES[dtype], _kind_code(kind, None), int(bool(interior_only)), NY,
+        NX)
+    if code < 0:
+        raise RuntimeError(f"solve_iter path query failed: cudaError_t "
+                           f"{-code}")
+    return "tiled" if code == 1 else "streaming"
+
+
+def sweep_floor(NY: int, NX: int, dtype: torch.dtype, kind: str,
+                interior_only: bool, sweeps: int,
+                device: torch.device) -> None:
+    """Launch the tiled loop for `sweeps` sweeps with no stencil work (its
+    grid barrier and error reduction a sweep) on the tiling an (NY, NX)
+    solve of `kind` ("gs" or "nps") takes: the floor of its time a sweep
+    (chip_smoke.py times it). Not counted in LAUNCHES. Raises on a plane
+    that takes the streaming loop."""
+    lib = build.load()
+    scratch = torch.empty((NY, NX), dtype=dtype, device=device)
+    err_ring = torch.empty(3, dtype=torch.int64, device=device)
+    out = torch.empty((), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.lbm_solve_iter_floor(
+            _DTYPES[dtype], _kind_code(kind, None),
+            int(bool(interior_only)), int(sweeps), scratch.data_ptr(),
+            err_ring.data_ptr(), out.data_ptr(), NY, NX, stream)
+    if err != 0:
+        raise RuntimeError(f"solve_iter floor launch failed: cudaError_t "
+                           f"{err}")
 
 
 def solve_iter(phi0: torch.Tensor, rho_q: torch.Tensor, *,

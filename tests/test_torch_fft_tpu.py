@@ -119,7 +119,7 @@ def test_kernel_tables_hold_the_symbols_in_bit_reversed_order(shape):
     NY, NX = shape
     tw_x, tw_y, sym_x, sym_y = fft_tpu.kernel_tables(NY, NX)
     for tw, n in ((tw_x, NX), (tw_y, NY)):
-        w = np.exp(-2j * np.pi * np.arange(n // 2) / n)
+        w = np.exp(-2j * np.pi * np.arange(n) / n)
         np.testing.assert_array_equal(tw, np.stack(
             [w.real, w.imag], 1).astype(np.float32))
     siny2, sy, sinx2, sx = jfft.grad_vectors(NY, NX)

@@ -45,12 +45,28 @@ single-device steps on the whole grid (chip_smoke.py phases 6a and 11a hold
 the CUDA build).
 
 lbm_tpu_torch/kernels/csrc/fft_solve.cuh holds the three per-block programs
-of csrc/fft_solve.cu (row forward, column solve, row inverse), whose
-block-stride loops become serial loops on the host; a loop over the blocks
-then does what the grid does. Its radix-2 transforms sum in another order
-than the plain version's permuted four-step, so the host build is held at
-1e-5 of scale (chip_smoke.py phase 9a's gate for the CUDA build) at 128x256
-and 256x128, on seeded charge densities.
+of csrc/fft_solve.cu (two real rows a line forward, column panel solve, row
+inverse, through a scratch tiled by column panels), whose block-stride loops
+become serial loops on the host; a loop over the blocks then does what the
+grid does. Its radix-16 transforms sum in another order than the plain
+version's permuted four-step, so the host build is held at 1e-5 of scale
+(chip_smoke.py phase 9a's gate for the CUDA build) at 128x256, 256x128,
+128x128 and 512x256, on seeded charge densities.
+
+lbm_tpu_torch/kernels/csrc/poisson_tile.cuh holds the per-tile program of
+the tiled iterative solve (csrc/poisson_iter.cu): the colour passes in place
+on a tile and the part of its ring they reach, in shared memory, the border
+and ring exchange through two planes, the error. The host build runs every tile of a cut of the plane one after
+another, sweep by sweep, with the exchange between sweeps, and must equal
+kernels.poisson_iter.solve_iter_reference (the plain sweeps) bit for bit,
+sweep count included: GS, SOR and NPS, periodic and interior-only, f64 and
+f32, at 16x24, 10x140 and (interior-only: odd periodic planes take the
+streaming loop) 15x21, on cuts into one tile and into tiles that do not divide the
+plane, for 60 sweeps, to tol 1e-8, from a phi0 holding a NaN (one sweep)
+and with max_iter 0. Copies of the header with one line changed (a row's
+colour, the order of the neighbour sum, the ring's side columns) must fail
+that
+(chip_smoke.py phase 3b holds the CUDA build).
 """
 import ctypes
 import dataclasses
@@ -63,7 +79,7 @@ import torch
 
 from lbm_tpu_torch.config import CavityConfig, PlasmaConfig
 from lbm_tpu_torch.kernels import (fft_tpu, fused_cavity, fused_step,
-                                   fused_step3d)
+                                   fused_step3d, poisson_iter)
 from lbm_tpu_torch.kernels.build import CSRC
 from lbm_tpu_torch.kernels.fused_step import _MODES, host_params
 from lbm_tpu_torch.models import cavity, plasma, plasma3d
@@ -693,12 +709,12 @@ extern "C" int host_fft_solve(const float* rho, const float* tw_x,
   std::vector<float> col(2 * plane_floats(P, NY));
   float* row_im = row.data() + plane_floats(R, NX);
   float* col_im = col.data() + plane_floats(P, NY);
-  for (int b = 0; b < NY / R; ++b)
-    rows_forward_block(b, rho, scratch, tb, row.data(), row_im, NY, NX, R);
+  for (int b = 0; b < NY / (2 * R); ++b)
+    rows_forward_pair_block(b, rho, scratch, tb, row.data(), row_im, NY, NX, R, P);
   for (int b = 0; b < NX / P; ++b)
-    cols_solve_block(b, scratch, tb, col.data(), col_im, NY, NX, P);
+    panel_solve_block(b, scratch, tb, col.data(), col_im, NY, NX, P);
   for (int b = 0; b < NY / R; ++b)
-    rows_inverse_block(b, scratch, ex, ey, tb, row.data(), row_im, NY, NX, R);
+    rows_inverse_block(b, scratch, ex, ey, tb, row.data(), row_im, NY, NX, R, P);
   return 0;
 }
 """
@@ -712,7 +728,8 @@ def host_fft(tmp_path_factory):
     return so
 
 
-@pytest.mark.parametrize("shape", [(128, 256), (256, 128)],
+@pytest.mark.parametrize("shape", [(128, 256), (256, 128), (128, 128),
+                                   (512, 256)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_fft_solve_header_matches_plain_version(host_fft, shape):
     NY, NX = shape
@@ -730,6 +747,213 @@ def test_fft_solve_header_matches_plain_version(host_fft, shape):
         err = max(float(np.abs(g - w.numpy()).max())
                   for g, w in zip((ex, ey), want))
         assert err < 1e-5 * scale, f"seed {seed}: {err / scale:.3e} of scale"
+
+
+_TILE_HOST = r"""
+#include <vector>
+
+#include "poisson_tile.cuh"
+
+using namespace ptile;
+
+// csrc/poisson_iter.cu's tiled loop with the tiles run one after another:
+// each tile reads its ring from the plane of the previous sweep's borders,
+// runs the colour passes and writes its border to the other plane; the
+// sweep's error is the tiles' maximum
+template <typename T, int KIND, bool INTERIOR>
+int run(const T* phi0, const T* rho, T* out, int NY, int NX, int ty, int tx,
+        int max_iter, double tol, double omega) {
+  using U = typename Bits<T>::U;
+  const Tiling g{NY, NX, ty, tx};
+  const int d = ring_depth(KIND);
+  // odd tiles read rho from the plane, even ones from a tiled copy
+  std::vector<Tile> tiles;
+  std::vector<Layout> L;
+  std::vector<std::vector<T>> S, R;
+  for (int id = 0; id < ty * tx; ++id) {
+    tiles.push_back(tile_of(g, id));
+    L.push_back(layout_of(tiles[id], d));
+    S.emplace_back(tile_floats(tiles[id], L[id]));
+    R.emplace_back(S[id].size());
+    load_tile(phi0, S[id].data(), tiles[id], L[id], NY, NX);
+    load_tile(rho, R[id].data(), tiles[id], L[id], NY, NX);
+  }
+  std::vector<T> scratch(static_cast<size_t>(NY) * NX);
+  T* planes[2] = {scratch.data(), out};
+  const Coeffs<T> k{static_cast<T>(omega), static_cast<T>(1.0 - omega)};
+  T err = Bits<T>::val(Bits<T>::kInf);
+  int it = 0;
+  while (it < max_iter && err >= static_cast<T>(tol)) {
+    U m = 0;
+    for (int id = 0; id < ty * tx; ++id) {
+      if (it > 0) read_ring(planes[(it - 1) & 1], S[id].data(), tiles[id], L[id], NY, NX);
+      for (int c = 0; c < d; ++c)
+        m = colour_pass<T, KIND, INTERIOR>(S[id].data(), id & 1 ? rho : R[id].data(),
+                                           (id & 1) == 0, tiles[id], L[id], d - 1 - c, NY, NX,
+                                           c, k, m);
+      publish_border(planes[it & 1], S[id].data(), tiles[id], L[id], NX);
+    }
+    err = Bits<T>::val(m);
+    ++it;
+  }
+  for (int id = 0; id < ty * tx; ++id) store_tile(out, S[id].data(), tiles[id], L[id], NX);
+  return it;
+}
+
+template <typename T>
+int run_kind(int kind, int interior, const void* phi0, const void* rho, void* out, int NY,
+             int NX, int ty, int tx, int max_iter, double tol, double omega) {
+  const T* p = static_cast<const T*>(phi0);
+  const T* r = static_cast<const T*>(rho);
+  T* o = static_cast<T*>(out);
+#define RUN_TILE(K, I) return run<T, K, I>(p, r, o, NY, NX, ty, tx, max_iter, tol, omega)
+  switch (kind * 2 + (interior ? 1 : 0)) {
+    case 0: RUN_TILE(kGS, false);
+    case 1: RUN_TILE(kGS, true);
+    case 2: RUN_TILE(kSOR, false);
+    case 3: RUN_TILE(kSOR, true);
+    case 4: RUN_TILE(kNPS, false);
+    default: RUN_TILE(kNPS, true);
+  }
+#undef RUN_TILE
+}
+
+extern "C" int host_solve_tiles(int dtype, int kind, int interior, double omega, int max_iter,
+                                double tol, const void* phi0, const void* rho, void* out,
+                                int NY, int NX, int ty, int tx) {
+  if (dtype == 0)
+    return run_kind<double>(kind, interior, phi0, rho, out, NY, NX, ty, tx, max_iter, tol,
+                            omega);
+  return run_kind<float>(kind, interior, phi0, rho, out, NY, NX, ty, tx, max_iter, tol, omega);
+}
+
+extern "C" int host_in_place(int interior, int NY, int NX) {
+  return in_place_equals_plain(interior != 0, NY, NX) ? 1 : 0;
+}
+"""
+
+
+def _host_tiles(tmp_path_factory, name, csrc=CSRC):
+    so = _build_host(tmp_path_factory, name, _TILE_HOST, {}, csrc)
+    ci, cd, vp = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
+    so.host_solve_tiles.argtypes = [ci, ci, ci, cd, ci, cd, vp, vp, vp, ci,
+                                    ci, ci, ci]
+    so.host_solve_tiles.restype = ci
+    so.host_in_place.argtypes = [ci, ci, ci]
+    so.host_in_place.restype = ci
+    return so
+
+
+@pytest.fixture(scope="module")
+def host_tiles(tmp_path_factory):
+    return _host_tiles(tmp_path_factory, "host_tiles")
+
+
+_TILE_KINDS = {"gs": ("gs", None), "sor": ("gs", 1.8), "nps": ("nps", None)}
+# (NY, NX): the cuts into (ty, tx) tiles held on each; 16 / 3, 24 / 5,
+# 21 / 4 and 140 / 3 leave ragged tiles, (2, 1) and (1, 2) a ring from the
+# tile itself on one axis; 10x140 gives rows of more than 32 sites of a
+# colour (a warp's run)
+_TILE_CUTS = {(16, 24): [(1, 1), (3, 5), (2, 1), (1, 2), (4, 4)],
+              (15, 21): [(1, 1), (2, 4), (3, 3)],
+              (10, 140): [(1, 1), (2, 1), (1, 3)]}
+
+
+def _tile_runs(ny, nx, dtype):
+    """[(label, phi0, rho, max_iter, tol)] on a seeded plane."""
+    rng = np.random.default_rng(ny * nx)
+    rho = 0.1 * rng.random((ny, nx))
+    rho -= rho.mean()
+    phi0 = torch.as_tensor(0.05 * rng.random((ny, nx)), dtype=dtype)
+    rho = torch.as_tensor(rho, dtype=dtype)
+    nan_phi = phi0.clone()
+    nan_phi[ny // 2, nx // 2] = float("nan")
+    return [("60 sweeps", phi0, rho, 60, 0.0),
+            ("tol 1e-8", phi0, rho, 5000, 1e-8),
+            ("NaN", nan_phi, rho, 5000, 1e-8),
+            ("max_iter 0", phi0, rho, 0, 1e-8)]
+
+
+def _tile_mismatches(so, shape, kinds, dtypes=(torch.float64,
+                                                torch.float32)):
+    """[(case, what)] where the host build of the tiled loop differs from
+    the plain sweeps."""
+    from lbm_tpu_torch.ops import poisson
+    ny, nx = shape
+    bad = []
+    for dtype in dtypes:
+        for label, phi0, rho, max_iter, tol in _tile_runs(ny, nx, dtype):
+            for name in kinds:
+                kind, omega = _TILE_KINDS[name]
+                for interior in (False, True):
+                    if not so.host_in_place(int(interior), ny, nx):
+                        continue   # the streaming loop's case
+                    spec = (kind, omega, max_iter, tol, interior)
+                    want = poisson_iter.solve_iter_reference(phi0, rho,
+                                                             spec=spec)
+                    n_want = poisson.LAST_SWEEPS
+                    for ty, tx in _TILE_CUTS[shape]:
+                        got = torch.empty_like(phi0)
+                        n_got = so.host_solve_tiles(
+                            0 if dtype == torch.float64 else 1,
+                            {"gs": 0, "nps": 2}[kind] + (omega is not None),
+                            int(interior), omega or 0.0, max_iter, tol,
+                            phi0.data_ptr(), rho.data_ptr(), got.data_ptr(),
+                            ny, nx, ty, tx)
+                        case = (f"{dtype} {label} {name} "
+                                f"{'int' if interior else 'per'} {ty}x{tx}")
+                        if n_got != n_want:
+                            bad.append((case, f"{n_got} sweeps vs {n_want}"))
+                        elif not torch.equal(_bits(got), _bits(want)):
+                            bad.append((case, "phi"))
+    return bad
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+@pytest.mark.parametrize("kind", list(_TILE_KINDS))
+@pytest.mark.parametrize("shape", list(_TILE_CUTS),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tile_program_matches_plain_sweeps_bitwise(host_tiles, shape, kind):
+    """csrc/poisson_tile.cuh's tiled loop on every cut against the plain
+    sweeps, phi and the sweep count bit for bit, in f64 and f32."""
+    assert host_tiles.host_in_place(1, 15, 21) == 1
+    assert host_tiles.host_in_place(0, 15, 21) == 0
+    assert host_tiles.host_in_place(0, 16, 24) == 1
+    assert _tile_mismatches(host_tiles, shape, [kind]) == []
+
+
+# one-line changes of poisson_tile.cuh, each of which the bitwise hold must
+# catch: (what it breaks, the line as it is, the line changed)
+_TILE_MUTATIONS = {
+    "row colour": (
+        "((c >> 1) - xa) & 1 : (c - xa - yu) & 1;",
+        "((c >> 1) - xa) & 1 : (c - yu) & 1;"),
+    "sum order": (
+        "const T nb5 = ((S[o] + S[o + 1]) + S[s - rs]) + S[s + rs];",
+        "const T nb5 = ((S[s - rs] + S[o + 1]) + S[o]) + S[s + rs];"),
+    "ring depth": (
+        "      const int f = e - 2 * band, g = f / (2 * d), k = f % (2 * d);",
+        "      const int f = e - 2 * band, g = f / (2 * d), k = f % d;"),
+}
+
+
+@pytest.mark.parametrize("what", list(_TILE_MUTATIONS))
+def test_tile_program_mutations_fail(tmp_path_factory, what):
+    before, after = _TILE_MUTATIONS[what]
+    csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_"))
+    for header in CSRC.glob("*.cuh"):
+        text = header.read_text()
+        if header.name == "poisson_tile.cuh":
+            assert text.count(before) == 1, f"{what}: line not found"
+            text = text.replace(before, after)
+        (csrc / header.name).write_text(text)
+    so = _host_tiles(tmp_path_factory, "tile_mutant", csrc)
+    assert _tile_mismatches(so, (16, 24), list(_TILE_KINDS),
+                            (torch.float64,)), (
+        f"the '{what}' mutation passed the bitwise hold")
 
 
 _WINDOW_HOST = r"""
