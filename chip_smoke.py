@@ -73,7 +73,10 @@ phase fails:
   8a. the 3-D collide_stream3d kernel vs its plain version on seeded warm
      states at 12x16x8, 16x16x1 and 17x13x2 (x, y, z), f64 and f32 with
      and without neutral-delta storage and bf16 + delta, at phase 3's
-     tolerances, with the number of bitwise-equal elements;
+     tolerances, with the number of bitwise-equal elements; and bitwise in
+     all six modes at the edges of the tile program's runs (rows of 1, 3,
+     W + 1 = 65 and 33 sites, a ragged 100 = 64 + 36), which take its TMA
+     and its cp.async staging routes;
   8b. the 3-D CLI with its defaults (lbm_tpu_torch.run_plasma3d.main: 64^3,
      50 steps, FFT, fused, f32 + delta): exactly 50 launches, a finite
      state, the kernel held against its plain version on the end state and
@@ -82,7 +85,9 @@ phase fails:
      512^2x64 and 1024^2x32 bf16 + delta (bench.py's 3-D legs and their
      neighbours), 2 warm-up + 6 timed steps: ms/step, MLUPS, the kernel's
      ms and its byte bound, the solve + E's ms (the plain version's ms at
-     128^3); and the kernel held against its plain version at the cross-
+     128^3; at 1024^2x32, 16 runs a row, the kernel held bitwise against
+     the plain version slab by slab); and the kernel held against its plain
+     version at the cross-
      sections where the JAX package routes to its split pair and panel
      kernel: 192^2 f32 + delta and 256^2, 512^2, 1024^2 bf16 + delta, NZ=4.
   9a. the spectral solve kernel (solve_fft_efield_tpu) vs its plain
@@ -1486,6 +1491,21 @@ def _hold3d(where, mode, k_out, p_out):
     return worst, "; ".join(line)
 
 
+# 8a's shapes at the edges of the tile program's runs (x, y, z): W = 64
+# sites (f64 32), so a row of 1 or 3 sites, W + 1 in f32 / bf16 and in f64,
+# and a ragged last run (100 = 64 + 36); rows whose bytes are not a
+# multiple of 16 take the unaligned route (cp.async and element stores)
+RUN_EDGES_3D = [(1, 5, 4), (3, 5, 4), (65, 6, 3), (33, 6, 3), (100, 6, 3)]
+
+
+def _tile_route(nx, storage, dtype):
+    """The staging route the tile program takes for rows of nx sites."""
+    s_size = 2 if storage == "bf16" else (8 if dtype == "float64" else 4)
+    t_size = 8 if dtype == "float64" else 4
+    return ("TMA" if (nx * s_size) % 16 == 0 and (nx * t_size) % 16 == 0
+            else "cp.async")
+
+
 def phase_3d_kernel():
     """Phase 8a; returns the worst max|err| over the f64 holds."""
     import torch
@@ -1512,6 +1532,30 @@ def phase_3d_kernel():
             if dtype == "float64":
                 worst_f64 = max(worst_f64, mx)
             print(f"{where:>22}: {line}")
+    # the run's edges, both staging routes, every mode
+    for nx, ny, nz in RUN_EDGES_3D:
+        routes = set()
+        for mode in COLLIDE_MODES:
+            label, dtype, storage, delta = mode[:4]
+            cfg = PlasmaConfig(NX=nx, NY=ny, NZ=nz,
+                               dtype=getattr(torch, dtype), storage=storage,
+                               neutral_delta=delta, backend="fused")
+            st = _seeded_state3d(cfg, device, nz * 10000 + ny * 100 + nx, 2)
+            args = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+            phys = phys_of(cfg)
+            k_out = fused_step3d.collide_stream3d(*args, **phys)
+            p_out = fused_step3d.collide_stream3d_reference(*args, **phys)
+            torch.cuda.synchronize()
+            for name, kg, pg in zip(("f", "g", "rho_q"), k_out, p_out):
+                require(torch.equal(kg, pg), f"run edge {label} {nx}x{ny}x"
+                        f"{nz} {name}: not bitwise equal to the plain version")
+            if dtype == "float64":
+                worst_f64 = max(worst_f64, max(float(
+                    (a.double() - b.double()).abs().max())
+                    for a, b in zip(k_out, p_out)))
+            routes.add(_tile_route(nx, storage, dtype))
+        print(f"run edge {nx}x{ny}x{nz}: bitwise equal to the plain version "
+              f"in all {len(COLLIDE_MODES)} modes ({', '.join(sorted(routes))})")
     return worst_f64
 
 
@@ -1584,6 +1628,29 @@ SHAPE_HOLDS_3D = [(192, "native"), (256, "bf16"), (512, "bf16"),
                   (1024, "bf16")]
 
 
+def _hold3d_by_slabs(args, phys, depth):
+    """collide_stream3d on a grid too large for its plain version's
+    temporaries, held bitwise slab by slab: each z-slab of `depth` slices
+    against halo3d_reference on that slab and its two neighbour slices
+    (which equals the plain version on the whole grid at the slab)."""
+    import torch
+    from lbm_tpu_torch.kernels import fused_step3d
+
+    out = fused_step3d.collide_stream3d(*args, **phys)
+    NZ = args[2].shape[0]
+    for z0 in range(0, NZ, depth):
+        zs = slice(z0, min(z0 + depth, NZ))
+        want = fused_step3d.halo3d_reference(
+            *fused_step3d.halo_inputs3d(args, zs, None), **phys)
+        for name, k, w in zip(("f", "g", "rho_q"), out, want):
+            require(torch.equal(k[..., zs, :, :], w), f"slab {zs} {name}: "
+                    f"collide_stream3d not bitwise equal to the plain version")
+        del want
+    del out
+    torch.cuda.empty_cache()
+    return f"bitwise equal to the plain version in {-(-NZ // depth)} slabs"
+
+
 def phase_3d_real_size():
     """Phase 8c; returns the worst max|err| of the shape holds."""
     import torch
@@ -1624,6 +1691,8 @@ def phase_3d_real_size():
             plain_ms = _time_ms(lambda: fused_step3d.collide_stream3d_reference(
                 *args, **phys), 3)
             line += f"; plain {plain_ms:.4f} ms"
+        if n == 1024:
+            line += "; " + _hold3d_by_slabs(args, phys, 4)
         print(line)
         del state, args, rho_q
         torch.cuda.empty_cache()

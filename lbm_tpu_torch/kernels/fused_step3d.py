@@ -4,15 +4,17 @@ lbm_tpu/kernels/fused_step3d.py:collide_stream3d), and its halo form for a
 z-shard, collide_stream_halo3d (the JAX function of the same name).
 
 On CUDA tensors the wrapper launches the hand-written kernel in
-csrc/fused_step3d.cu, or raises; on CPU tensors it runs the plain version,
+csrc/fused_step3d.cu (the tile program of csrc/plasma3d_tile.cuh), or
+raises; on CPU tensors it runs the plain version,
 collide_stream3d_reference (ops/d3 update_macro3 + collide3 +
 stream_periodic3 in eager torch), which the tests compare with the JAX
 package and which the chip smoke test compares with the kernel. LAUNCHES
 counts kernel launches.
 
 The halo form runs csrc/fused_step3d.cu's second entry, which also serves
-kernels/fused_panel3d's y-shard and (dz, dy) tile steps: one kernel in
-three geometries, counted in HALO_LAUNCHES under the TPU kernel's name.
+kernels/fused_panel3d's y-shard and (dz, dy) tile steps: the same tile
+program in three more geometries, counted in HALO_LAUNCHES under the TPU
+kernel's name.
 
 The launch writes fresh output buffers (a push-stream in place races on a
 GPU), where the TPU kernel aliases its outputs onto f and g. The launch,

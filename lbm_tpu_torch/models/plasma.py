@@ -53,8 +53,8 @@ def check_supported(cfg: PlasmaConfig) -> None:
     gaps = []
     if cfg.NZ:
         gaps.append("NZ>0 in the 2-D model (the 3-D column is "
-                    "models/plasma3d, ROADMAP Queue 1 item 12; its multistep "
-                    "is item 14)")
+                    "models/plasma3d, run by run_plasma3d, with its "
+                    "multistep)")
     if cfg.dtype not in _NUMPY_DTYPES:
         gaps.append(f"dtype {cfg.dtype} (the port computes in float32 or "
                     f"float64)")

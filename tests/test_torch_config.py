@@ -73,8 +73,8 @@ def test_backend_names():
 
 @pytest.mark.parametrize("fields, item", [
     ({"multistep": 4, "backend": "fused", "NZ": 16,
-      "poisson": tcfg.PoissonSolver.NONE}, "Queue 1 item 12"),
-    ({"NZ": 16}, "Queue 1 item 12"),
+      "poisson": tcfg.PoissonSolver.NONE}, "models/plasma3d, run by"),
+    ({"NZ": 16}, "models/plasma3d, run by"),
 ])
 def test_unsupported_configs_raise(fields, item):
     cfg = dataclasses.replace(tcfg.PlasmaConfig(NX=8, NY=8), **fields)

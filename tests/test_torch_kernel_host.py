@@ -2,17 +2,21 @@
 the spectral solve's transforms, built for the CPU, against their plain
 versions.
 
-lbm_tpu_torch/kernels/csrc/plasma3d_site.cuh holds all the arithmetic of
-csrc/fused_step3d.cu (moments, guards, collide, push-stream stores). With
-host stand-ins for its two CUDA headers (_STUBS) it compiles with the host's
-C++ compiler, without fused multiply-adds (-ffp-contract=off, as the card's
-build uses -fmad=false); a loop over the sites then does what the kernel's
-threads do. Every float operation is IEEE-rounded on both sides, so the
-result must equal kernels.fused_step3d.collide_stream3d_reference bit for
-bit, in f64, f32 and bf16 storage, with and without neutral-delta storage,
-on seeded warm states at 12x16x8, 16x16x1 and 17x13x2 (x, y, z). This holds
-the kernel's expression trees on every change here; chip_smoke.py phase 8a
-holds the CUDA build on the card.
+lbm_tpu_torch/kernels/csrc/plasma3d_tile.cuh is the block program of
+csrc/fused_step3d.cu (both entries: the periodic step and the halo step of
+a shard), with its arithmetic in plasma3d_site.cuh. With host stand-ins for
+its two CUDA headers (_STUBS) it compiles with the host's C++ compiler,
+without fused multiply-adds (-ffp-contract=off, as the card's build uses
+-fmad=false); its thread loops become serial loops and tile3_host runs the
+runs one after another, staging and storing them with the same indices as
+the card (the aligned route's copies and vector stores as memcpy). Every
+float operation is IEEE-rounded on both sides, so the result must equal
+kernels.fused_step3d.collide_stream3d_reference bit for bit, in f64, f32 and
+bf16 storage, with and without neutral-delta storage, on seeded warm states
+at 12x16x8, 16x16x1 and 17x13x2 (x, y, z) with the card's run widths; and,
+built with runs of 8 sites, at a ragged last run (NX = 12), NX < W (3),
+NX = 1 and NX = W + 1 (9), for the periodic step and for a z-shard, a
+y-shard and a tile of each. chip_smoke.py phase 8a holds the CUDA build.
 
 lbm_tpu_torch/kernels/csrc/halo_site.cuh holds the per-site work of the
 halo kernels (csrc/fused_step.cu's halo mode): which strip a site of the
@@ -23,16 +27,15 @@ collide_stream_halo2d_reference (a tile) bit for bit, at an 8x16 shard and
 a ragged 13x11 one that wraps around the grid's corner (chip_smoke.py phase
 10a holds the CUDA build).
 
-lbm_tpu_torch/kernels/csrc/halo3d_site.cuh holds the per-site work of the
-3-D halo kernel (csrc/fused_step3d.cu's halo entry): which strip a site of
-a shard's extended block reads (the shard, a slice, a row or a corner
-line), with which plane stride, and which of its pushes land in the shard.
-A loop over the extended block must equal fused_step3d.halo3d_reference
-bit for bit on a z-shard, a y-shard, a (dz, dy) tile and a tile that is
-the whole grid (its strips the grid's own wrap), in f64 and bf16 storage;
-and copies of the header with one line changed (the corner line taken,
-the axis that wraps, a strip's plane stride) must fail that (chip_smoke.py
-phase 12a holds the CUDA build).
+The same host build of plasma3d_tile.cuh must equal
+fused_step3d.halo3d_reference bit for bit on a z-shard, a y-shard, a
+(dz, dy) tile and a tile that is the whole grid (its strips the grid's own
+wrap), in f64 and bf16 storage: which strip a run reads (the shard, a
+slice, a row or a corner line), with which plane stride, and which of its
+destination rows lie in the shard; and copies of the header with one line
+changed (the corner line taken, the axis that wraps, a strip's plane
+stride, the x-neighbour collided again at the row's wrap) must fail that
+(chip_smoke.py phase 12a holds the CUDA build).
 
 lbm_tpu_torch/kernels/csrc/cavity_site.cuh holds the per-site work of the
 cavity kernels (csrc/fused_cavity.cu): where a halo row comes from (a
@@ -133,38 +136,6 @@ typedef void* cudaStream_t;
 }
 _HOST_LOOP = r"""
 #include "halo_site.cuh"
-#include "plasma3d_site.cuh"
-
-template <typename S, typename T, bool DELTA, bool FAST>
-void run(const void* f, const void* g, const void* Ex, const void* Ey,
-         const void* Ez, void* fo, void* go, void* rq, int NZ, int NY, int NX,
-         const HostParams& hp) {
-  const Params<T> p = cast_params<T>(hp);
-  const int64_t vol = static_cast<int64_t>(NZ) * NY * NX;
-  for (int64_t site = 0; site < vol; ++site)
-    collide_stream_site3d<S, T, DELTA, FAST>(
-        static_cast<const S*>(f), static_cast<const S*>(g),
-        static_cast<const T*>(Ex), static_cast<const T*>(Ey),
-        static_cast<const T*>(Ez), static_cast<S*>(fo), static_cast<S*>(go),
-        static_cast<T*>(rq), NZ, NY, NX, site, p);
-}
-
-#define RUN(S, T, FAST)                                                     \
-  (delta ? run<S, T, true, FAST>(f, g, Ex, Ey, Ez, fo, go, rq, NZ, NY, NX,  \
-                                 *hp)                                       \
-         : run<S, T, false, FAST>(f, g, Ex, Ey, Ez, fo, go, rq, NZ, NY, NX, \
-                                  *hp))
-
-extern "C" int host_collide_stream3d(int mode, int delta, const void* f,
-                                     const void* g, const void* Ex,
-                                     const void* Ey, const void* Ez, void* fo,
-                                     void* go, void* rq, int NZ, int NY,
-                                     int NX, const HostParams* hp) {
-  if (mode == 0) RUN(double, double, false);
-  else if (mode == 1) RUN(float, float, false);
-  else RUN(__nv_bfloat16, float, true);
-  return 0;
-}
 
 template <typename S, typename T, bool DELTA, bool FAST>
 void run_halo(const void* const* ptr, void* fo, void* go, void* rq,
@@ -226,8 +197,6 @@ def _build_host(tmp_path_factory, name, source, stubs, csrc=CSRC,
 def host_kernel(tmp_path_factory):
     so = _build_host(tmp_path_factory, "host_loop", _HOST_LOOP, _STUBS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    so.host_collide_stream3d.argtypes = [ci, ci, *[vp] * 8, ci, ci, ci, vp]
-    so.host_collide_stream3d.restype = ci
     so.host_collide_stream_halo.argtypes = [ci, ci, *[vp] * 6]
     so.host_collide_stream_halo.restype = ci
     return so
@@ -254,34 +223,77 @@ def _seeded(cfg, seed):
                           Ez=perturb(state.Ez, e))
 
 
+def _phys3d(cfg, delta):
+    u = cfg.units()
+    return dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
+                cs2=u.cs2, kb=u.kb,
+                neutral_ref=u.rho_n_init if delta else 0.0)
+
+
+def _periodic3d_mismatches(so, st, dtype, delta, phys):
+    """[(output, differing elements)] of the host build's periodic step
+    against collide_stream3d_reference on the state st."""
+    want = fused_step3d.collide_stream3d_reference(
+        st.f, st.g, st.Ex, st.Ey, st.Ez, **phys)
+    got = (torch.empty_like(st.f), torch.empty_like(st.g),
+           torch.empty_like(st.Ex))
+    hp = host_params(**phys)
+    so.host_collide_stream3d(
+        _MODES[(st.f.dtype, dtype)], int(delta),
+        *(t.data_ptr() for t in (st.f, st.g, st.Ex, st.Ey, st.Ez)),
+        *(t.data_ptr() for t in got), *st.Ex.shape, ctypes.addressof(hp))
+    return [(name, int((a != b).sum())) for name, a, b
+            in zip(("f", "g", "rho_q"), got, want) if not torch.equal(a, b)]
+
+
+_MODES3D = [(torch.float64, "native", False), (torch.float64, "native", True),
+            (torch.float32, "native", False), (torch.float32, "native", True),
+            (torch.float32, "bf16", False), (torch.float32, "bf16", True)]
+
+
 @pytest.mark.parametrize("shape", [(12, 16, 8), (16, 16, 1), (17, 13, 2)],
                          ids=lambda s: "x".join(map(str, s)))
-def test_site_code_matches_plain_version_bitwise(host_kernel, shape):
+def test_site_code_matches_plain_version_bitwise(host_tile3, shape):
+    """plasma3d_tile.cuh's periodic step with the card's run widths (one run
+    a row here: NX < W) against collide_stream3d_reference, bit for bit."""
     nx, ny, nz = shape
-    for dtype, storage, delta in [
-            (torch.float64, "native", False), (torch.float64, "native", True),
-            (torch.float32, "native", False), (torch.float32, "native", True),
-            (torch.float32, "bf16", False), (torch.float32, "bf16", True)]:
+    for dtype, storage, delta in _MODES3D:
         cfg = PlasmaConfig(NX=nx, NY=ny, NZ=nz, dtype=dtype, storage=storage,
                            neutral_delta=delta)
-        u = cfg.units()
-        phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
-                    m_i=u.m_i, cs2=u.cs2, kb=u.kb,
-                    neutral_ref=u.rho_n_init if delta else 0.0)
         st = _seeded(cfg, nz * 10000 + ny * 100 + nx)
-        want = fused_step3d.collide_stream3d_reference(
-            st.f, st.g, st.Ex, st.Ey, st.Ez, **phys)
-        got = (torch.empty_like(st.f), torch.empty_like(st.g),
-               torch.empty_like(st.Ex))
-        hp = host_params(**phys)
-        host_kernel.host_collide_stream3d(
-            _MODES[(st.f.dtype, dtype)], int(delta),
-            *(t.data_ptr() for t in (st.f, st.g, st.Ex, st.Ey, st.Ez)),
-            *(t.data_ptr() for t in got), nz, ny, nx, ctypes.addressof(hp))
-        for name, a, b in zip(("f", "g", "rho_q"), got, want):
-            assert torch.equal(a, b), (
-                f"{storage} {dtype} delta={delta} {name}: "
-                f"{int((a != b).sum())} of {a.numel()} elements differ")
+        bad = _periodic3d_mismatches(host_tile3, st, dtype, delta,
+                                     _phys3d(cfg, delta))
+        assert bad == [], f"{storage} {dtype} delta={delta}: {bad}"
+
+
+# the run edges with runs of 8 sites (x, y, z): a ragged last run, a row
+# shorter than a run, a row of one site, a row one site longer than a run;
+# each also cut into a z-shard, a y-shard and a tile across the corner
+_RUN_EDGES = {"ragged": (12, 5, 4), "nx<w": (3, 5, 4), "nx=1": (1, 5, 4),
+              "nx=w+1": (9, 5, 4)}
+_EDGE_CUTS = {"z-shard": (slice(1, 3), None), "y-shard": (None, slice(1, 4)),
+              "tile": (slice(3, 5), slice(4, 7))}
+
+
+@pytest.mark.parametrize("edge", list(_RUN_EDGES))
+def test_tile_program_run_edges_bitwise(host_tile3_w8, edge):
+    """plasma3d_tile.cuh built with 8-site runs at the run's edges, the
+    periodic step against collide_stream3d_reference and three shards
+    against halo3d_reference, bit for bit, in every mode (f32 at NX = 12
+    takes the aligned route: TMA copies and vector stores, here memcpy)."""
+    nx, ny, nz = _RUN_EDGES[edge]
+    bad = []
+    for dtype, storage, delta in _MODES3D:
+        cfg = PlasmaConfig(NX=nx, NY=ny, NZ=nz, dtype=dtype, storage=storage,
+                           neutral_delta=delta)
+        phys = _phys3d(cfg, delta)
+        st = _seeded(cfg, nz * 10000 + ny * 100 + nx)
+        where = f"{storage} {dtype} delta={delta}"
+        bad += [(where, "periodic", m) for m in _periodic3d_mismatches(
+            host_tile3_w8, st, dtype, delta, phys)]
+        bad += [(where, cut, m) for cut, m in _halo3d_outputs(
+            host_tile3_w8, st, dtype, delta, phys, _EDGE_CUTS)]
+    assert bad == []
 
 
 def _seeded2d(cfg, seed):
@@ -352,59 +364,84 @@ def test_halo_site_code_matches_plain_version_bitwise(host_kernel, cut,
                 f"{int((a != b).sum())} of {a.numel()} elements differ")
 
 
-_HALO3D_HOST = r"""
-#include "halo3d_site.cuh"
+_TILE3_HOST = r"""
+#include "plasma3d_tile.cuh"
 
 template <typename S, typename T, bool DELTA, bool FAST>
-void run_halo3d(const void* const* ptr, void* fo, void* go, void* rq,
-                const Halo3Geom& gm, const HostParams& hp) {
-  const Params<T> p = cast_params<T>(hp);
-  Src3<S, T> src[9];
+void run_tiles(const void* const* ptr, void* fo, void* go, void* rq,
+               const Geom3& gm, const HostParams& hp) {
+  Tile3Args<S, T> a{};
   for (int k = 0; k < 9; ++k)
-    src[k] = {static_cast<const S*>(ptr[5 * k]),
-              static_cast<const S*>(ptr[5 * k + 1]),
-              static_cast<const T*>(ptr[5 * k + 2]),
-              static_cast<const T*>(ptr[5 * k + 3]),
-              static_cast<const T*>(ptr[5 * k + 4])};
-  const Halo3In<S, T> in{src[0], src[1], src[2], src[3], src[4],
-                         src[5], src[6], src[7], src[8]};
-  for (int64_t site = 0; site < halo3d_sites(gm); ++site)
-    collide_stream_halo3d_site<S, T, DELTA, FAST>(
-        in, static_cast<S*>(fo), static_cast<S*>(go), static_cast<T*>(rq),
-        gm, site, p);
+    a.src[k] = {static_cast<const S*>(ptr[5 * k]),
+                static_cast<const S*>(ptr[5 * k + 1]),
+                static_cast<const T*>(ptr[5 * k + 2]),
+                static_cast<const T*>(ptr[5 * k + 3]),
+                static_cast<const T*>(ptr[5 * k + 4])};
+  a.f_out = static_cast<S*>(fo);
+  a.g_out = static_cast<S*>(go);
+  a.rho_q = static_cast<T*>(rq);
+  a.gm = gm;
+  a.aligned = tile3_aligned(a);
+  tile3_host<S, T, DELTA, FAST>(a, hp);
 }
 
-#define RUN_HALO3D(S, T, FAST)                                       \
-  (delta ? run_halo3d<S, T, true, FAST>(ptr, fo, go, rq, gm, *hp)   \
-         : run_halo3d<S, T, false, FAST>(ptr, fo, go, rq, gm, *hp))
+#define RUN_TILES(S, T, FAST)                                       \
+  (delta ? run_tiles<S, T, true, FAST>(ptr, fo, go, rq, gm, *hp)   \
+         : run_tiles<S, T, false, FAST>(ptr, fo, go, rq, gm, *hp))
+
+static int run_mode(int mode, int delta, const void* const* ptr, void* fo,
+                    void* go, void* rq, const Geom3& gm,
+                    const HostParams* hp) {
+  if (mode == 0) RUN_TILES(double, double, false);
+#ifndef F64_ONLY
+  else if (mode == 1) RUN_TILES(float, float, false);
+  else RUN_TILES(__nv_bfloat16, float, true);
+#endif
+  return 0;
+}
+
+extern "C" int host_collide_stream3d(int mode, int delta, const void* f,
+                                     const void* g, const void* Ex,
+                                     const void* Ey, const void* Ez, void* fo,
+                                     void* go, void* rq, int NZ, int NY,
+                                     int NX, const HostParams* hp) {
+  const void* ptr[45] = {f, g, Ex, Ey, Ez};
+  return run_mode(mode, delta, ptr, fo, go, rq, Geom3{NZ, NY, NX, 0, 0}, hp);
+}
 
 extern "C" int host_collide_stream_halo3d(int mode, int delta,
                                           const void* const* ptr, void* fo,
                                           void* go, void* rq,
                                           const int* geom,
                                           const HostParams* hp) {
-  const Halo3Geom gm{geom[0], geom[1], geom[2], geom[3], geom[4]};
-  if (mode == 0) RUN_HALO3D(double, double, false);
-#ifndef F64_ONLY
-  else RUN_HALO3D(__nv_bfloat16, float, true);
-#endif
-  return 0;
+  const Geom3 gm{geom[0], geom[1], geom[2], geom[3], geom[4]};
+  return run_mode(mode, delta, ptr, fo, go, rq, gm, hp);
 }
 """
 
 
-def _host_halo3d(tmp_path_factory, name, csrc=CSRC, flags=()):
-    so = _build_host(tmp_path_factory, name, _HALO3D_HOST, _STUBS, csrc,
+def _host_tile3(tmp_path_factory, name, csrc=CSRC, flags=()):
+    so = _build_host(tmp_path_factory, name, _TILE3_HOST, _STUBS, csrc,
                      flags)
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    so.host_collide_stream3d.argtypes = [ci, ci, *[vp] * 8, ci, ci, ci, vp]
+    so.host_collide_stream3d.restype = ci
     so.host_collide_stream_halo3d.argtypes = [ci, ci, *[vp] * 6]
     so.host_collide_stream_halo3d.restype = ci
     return so
 
 
 @pytest.fixture(scope="module")
-def host_halo3d(tmp_path_factory):
-    return _host_halo3d(tmp_path_factory, "host_halo3d")
+def host_tile3(tmp_path_factory):
+    """The tile program with the card's run widths (64 sites, f64 32)."""
+    return _host_tile3(tmp_path_factory, "host_tile3")
+
+
+@pytest.fixture(scope="module")
+def host_tile3_w8(tmp_path_factory):
+    """The tile program with runs of 8 sites."""
+    return _host_tile3(tmp_path_factory, "host_tile3_w8",
+                       flags=["-DPLASMA3D_RUN=8"])
 
 
 # (slices, rows) of a 6x12x6 grid (NZ x NY x NX), None for an axis that
@@ -420,57 +457,64 @@ _HALO3D_MODES = [(torch.float64, "native", False),
                  (torch.float32, "bf16", True)]
 
 
+def _halo3d_outputs(so, st, dtype, delta, phys, cuts):
+    """[(cut, output)] where the host build's halo step differs from
+    halo3d_reference on the cuts of the state st."""
+    bad = []
+    arrays = (st.f, st.g, st.Ex, st.Ey, st.Ez)
+    for cut, (zs, ys) in cuts.items():
+        shard, zhalo, yrows, corners = fused_step3d.halo_inputs3d(
+            arrays, zs, ys)
+        want = fused_step3d.halo3d_reference(shard, zhalo, yrows, corners,
+                                             **phys)
+        groups = [shard, *(zhalo or (None,) * 2), *(yrows or (None,) * 2),
+                  *(corners or (None,) * 4)]
+        tensors = [t for grp in groups for t in (grp or (None,) * 5)]
+        ptrs = (ctypes.c_void_p * 45)(
+            *(None if t is None else t.data_ptr() for t in tensors))
+        geom = (ctypes.c_int * 5)(*shard[2].shape, int(zhalo is not None),
+                                  int(yrows is not None))
+        got = [torch.empty_like(w) for w in want]
+        hp = host_params(**phys)
+        so.host_collide_stream_halo3d(
+            _MODES[(shard[0].dtype, dtype)], int(delta), ptrs,
+            *(t.data_ptr() for t in got), geom, ctypes.addressof(hp))
+        bad += [(cut, name) for name, a, b in zip(("f", "g", "rho_q"), got,
+                                                  want)
+                if not torch.equal(a, b)]
+    return bad
+
+
 def _halo3d_mismatches(so, modes):
     """[(mode, cut, output)] where the host build differs from
-    halo3d_reference."""
+    halo3d_reference on _HALO3D_CUTS."""
     bad = []
     for dtype, storage, delta in modes:
         cfg = PlasmaConfig(NX=6, NY=12, NZ=6, dtype=dtype, storage=storage,
                            neutral_delta=delta)
-        u = cfg.units()
-        phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
-                    m_i=u.m_i, cs2=u.cs2, kb=u.kb,
-                    neutral_ref=u.rho_n_init if delta else 0.0)
         st = _seeded(cfg, 6126)
-        arrays = (st.f, st.g, st.Ex, st.Ey, st.Ez)
-        for cut, (zs, ys) in _HALO3D_CUTS.items():
-            shard, zhalo, yrows, corners = fused_step3d.halo_inputs3d(
-                arrays, zs, ys)
-            want = fused_step3d.halo3d_reference(shard, zhalo, yrows,
-                                                 corners, **phys)
-            groups = [shard, *(zhalo or (None,) * 2),
-                      *(yrows or (None,) * 2), *(corners or (None,) * 4)]
-            tensors = [t for grp in groups for t in (grp or (None,) * 5)]
-            ptrs = (ctypes.c_void_p * 45)(
-                *(None if t is None else t.data_ptr() for t in tensors))
-            geom = (ctypes.c_int * 5)(*shard[2].shape, int(zhalo is not None),
-                                      int(yrows is not None))
-            got = [torch.empty_like(w) for w in want]
-            hp = host_params(**phys)
-            so.host_collide_stream_halo3d(
-                _MODES[(shard[0].dtype, dtype)], int(delta), ptrs,
-                *(t.data_ptr() for t in got), geom, ctypes.addressof(hp))
-            bad += [(f"{storage} {dtype} delta={delta}", cut, name)
-                    for name, a, b in zip(("f", "g", "rho_q"), got, want)
-                    if not torch.equal(a, b)]
+        bad += [(f"{storage} {dtype} delta={delta}", cut, name)
+                for cut, name in _halo3d_outputs(
+                    so, st, dtype, delta, _phys3d(cfg, delta), _HALO3D_CUTS)]
     return bad
 
 
-def test_halo3d_site_code_matches_plain_versions_bitwise(host_halo3d):
-    """csrc/halo3d_site.cuh on every geometry against halo3d_reference (the
-    plain versions of collide_stream_halo3d, _panel3d with halo_rows and
-    _panel3d_zhalo), bit for bit."""
-    assert _halo3d_mismatches(host_halo3d, _HALO3D_MODES) == []
+def test_halo3d_site_code_matches_plain_versions_bitwise(host_tile3):
+    """plasma3d_tile.cuh's halo step on every geometry against
+    halo3d_reference (the plain versions of collide_stream_halo3d, _panel3d
+    with halo_rows and _panel3d_zhalo), bit for bit."""
+    assert _halo3d_mismatches(host_tile3, _HALO3D_MODES) == []
 
 
-# one-line changes of halo3d_site.cuh, each of which the bitwise hold must
+# one-line changes of plasma3d_tile.cuh, each of which the bitwise hold must
 # catch: (what it breaks, the line as it is, the line changed)
 _HALO3D_MUTATIONS = {
-    "corner row": ("src = z < 0 ? (y < 0 ? in.up_above : in.up_below)",
-                   "src = z < 0 ? (y < 0 ? in.up_below : in.up_above)"),
-    "wrap axis": ("        if (gm.yh) {", "        if (gm.zh) {"),
-    "strip stride": ("    vol = static_cast<int64_t>(NZ) * NX;",
-                     "    vol = static_cast<int64_t>(NY) * NX;"),
+    "corner row": ("a.src[u.z < 0 ? (u.y < 0 ? 5 : 6)",
+                   "a.src[u.z < 0 ? (u.y < 0 ? 6 : 5)"),
+    "wrap axis": ("  if (gm.yh) {", "  if (gm.zh) {"),
+    "strip stride": ("    u.vol = static_cast<int64_t>(NZ) * NX;",
+                     "    u.vol = static_cast<int64_t>(NY) * NX;"),
+    "x edge": ("(u.x0 == 0 ? NX - 1 : u.x0 - 1)", "(u.x0 == 0 ? 0 : u.x0 - 1)"),
 }
 
 
@@ -480,11 +524,11 @@ def test_halo3d_site_code_mutations_fail(tmp_path_factory, what):
     csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_"))
     for header in CSRC.glob("*.cuh"):
         text = header.read_text()
-        if header.name == "halo3d_site.cuh":
+        if header.name == "plasma3d_tile.cuh":
             assert text.count(before) == 1, f"{what}: line not found"
             text = text.replace(before, after)
         (csrc / header.name).write_text(text)
-    so = _host_halo3d(tmp_path_factory, "mutant", csrc, ["-DF64_ONLY"])
+    so = _host_tile3(tmp_path_factory, "mutant", csrc, ["-DF64_ONLY"])
     assert _halo3d_mismatches(so, _HALO3D_MODES[:2]), (
         f"the '{what}' mutation passed the bitwise hold")
 
