@@ -10,7 +10,9 @@ phase fails:
   2. build: compiles the CUDA kernels from lbm_tpu_torch/kernels/csrc;
   3. kernel vs plain: one collide_stream call each way on the same seeded
      state, at 37x53 and 200x200, in f64, f32 and bf16 storage, with and
-     without neutral-delta storage, each within its stated tolerance;
+     without neutral-delta storage, each within its stated tolerance; and
+     at the tile program's run edges (rows of 1, 3, 33, 37, 65 and 100
+     sites, a one-row grid);
   3b. solve kernel vs plain sweeps: GS, SOR (omega 1.8) and NPS, interior-
      only and periodic, f64 and f32, at 37x53, 200x200 and 1024x1024, with
      tol 0 / 60 sweeps and with tol 1e-8 / max 5000 sweeps on the rho_q of
@@ -20,8 +22,8 @@ phase fails:
      bitwise, each plane's loop (tiled or streaming) printed, and both
      sides of the size dispatch run;
   3c. collide-only kernel vs its plain version: f64 and f32, with and
-     without neutral-delta storage, at 37x53 and 200x200, at phase 3's
-     tolerances;
+     without neutral-delta storage, at 37x53 and 200x200 and at the tile
+     program's run edges, at phase 3's tolerances;
   4. golden run: lbm_tpu_torch.run_plasma.main at 200x200 for 200 steps in
      f64 through the kernel; its 19 probe series must match the compiled
      C++ reference fixture at rtol 1e-5 / atol 1e-5*scale, with exactly
@@ -58,7 +60,8 @@ phase fails:
      every mode (NONE periodic with and without the quirk, NONE and FFT
      under bounce-back, FFT + periodic, GS periodic with and without the
      Dirichlet-sweep quirk, SOR + bounce-back, NPS periodic; 60 sweeps),
-     f64, f32 and bf16 + delta, K = 1, 4, 17, at 37x53 and 200x200;
+     f64, f32 and bf16 + delta, K = 1, 4, 17, at 7x3, 5x65, 37x53 and
+     200x200, and K = 32 at 200x200;
      bitwise or the phase-3 ladder, the FFT mode within 1e-11 (f64) and
      1e-4 (f32) of scale (the plain version sums the DFT in the kernel's
      order);
@@ -69,7 +72,9 @@ phase fails:
      bf16 + delta, 256^2 NONE bf16 + delta K = 256) and 2048^2 / 4096^2
      NONE bf16 + delta K = 32, periodic and (2048^2) bounce-back, the last
      three held against the plain version on the rollout's end state;
-     ms/step, MLUPS, device ms a launch, the plain version's ms, the bound.
+     ms/step, MLUPS, device ms a launch (chained, and one input repeated on
+     the initial state and on the rollout's end state), the plain version's
+     ms, the bound (K times the collide stage's issue floor, or the bytes).
   8a. the 3-D collide_stream3d kernel vs its plain version on seeded warm
      states at 12x16x8, 16x16x1 and 17x13x2 (x, y, z), f64 and f32 with
      and without neutral-delta storage and bf16 + delta, at phase 3's
@@ -188,7 +193,7 @@ phase fails:
      single-device CLI's;
   13c. the gated window at 2048^2 NONE bf16 + delta, K = 32, on the bands
      of 1 card (2112x2048) and 4 (576x2048) beside the whole-grid
-     bounce-back window, the operations bound (1,500 flop a site and step)
+     bounce-back window, the bound (K times the collide stage's issue floor)
      and the plain version; the sharded rollout over a world of one beside
      the single-device window rollout, ms/step and MLUPS.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
@@ -378,6 +383,12 @@ def phys_of(cfg):
                 neutral_ref=u.rho_n_init if cfg.neutral_delta else 0.0)
 
 
+# the tile program's run edges (NY, NX), W = 64 sites (f64 32): rows of 1,
+# 3, 33 and 37 sites (NX < W; odd rows, whose bf16 planes take the element
+# route), 65 and 100 (a ragged last run), a one-row grid of one aligned run
+RUN_EDGES_2D = ((5, 1), (4, 3), (3, 33), (2, 37), (3, 65), (2, 100), (1, 64))
+
+
 def phase_kernel_vs_plain():
     from lbm_tpu_torch.kernels import fused_step
 
@@ -393,6 +404,10 @@ def phase_kernel_vs_plain():
                           fused_step.collide_stream_reference,
                           [m for m in COLLIDE_MODES
                            if m[1] == dtype and m[2] == "native"], [shape])
+    print("   the tile program's run edges:")
+    _collide_vs_plain(fused_step.collide_stream,
+                      fused_step.collide_stream_reference, COLLIDE_MODES,
+                      RUN_EDGES_2D)
     return golden_err
 
 
@@ -551,9 +566,13 @@ def phase_collide_kernel():
     from lbm_tpu_torch.kernels import collide_pallas, fused_step
 
     print("== phase 3c: collide-only kernel vs plain version on the card")
-    return _collide_vs_plain(collide_pallas.fused_collide,
-                             fused_step.collide_reference,
-                             [m for m in COLLIDE_MODES if m[2] == "native"])
+    native = [m for m in COLLIDE_MODES if m[2] == "native"]
+    err = _collide_vs_plain(collide_pallas.fused_collide,
+                            fused_step.collide_reference, native)
+    print("   the tile program's run edges:")
+    _collide_vs_plain(collide_pallas.fused_collide,
+                      fused_step.collide_reference, native, RUN_EDGES_2D)
+    return err
 
 
 def _parse_probe_fixture(path):
@@ -801,10 +820,10 @@ def phase_real_size_solvers():
                           steps)
             plain_ms = _time_ms(
                 lambda: fused_step.collide_reference(*args, **phys), 3)
-            bound = 444 * n * n / HBM_BYTES_PER_S * 1e3
-            parts.append(f"fused_collide {ms:.4f} ms (bound {bound:.4f} ms; "
-                         f"plain {plain_ms:.4f} ms)")
-            out.setdefault("fused_collide", (ms, plain_ms, bound, "bytes",
+            bound, bound_by = _collide_bound_ms(n * n)
+            parts.append(f"fused_collide {ms:.4f} ms (bound {bound:.4f} ms "
+                         f"by {bound_by}; plain {plain_ms:.4f} ms)")
+            out.setdefault("fused_collide", (ms, plain_ms, bound, bound_by,
                                              f"{n}x{n} f32"))
         else:
             ms = _time_ms(lambda: fused_step.collide_stream(*args, **phys),
@@ -1163,6 +1182,9 @@ def _multistep_modes():
     ]
 
 
+# 7a's grids (NY, NX): the run edges of the tile program (rows of 3 and 65
+# sites: a row shorter than a run, a ragged last run), 37x53 and 200^2
+MULTISTEP_SHAPES = ((7, 3), (5, 65), (37, 53), (200, 200))
 # (label, dtype, storage, neutral_delta, rtol, atol*scale, FFT-mode tol)
 MULTISTEP_DTYPES = [
     ("f64", "float64", "native", False, 1e-12, 1e-14, 1e-11),
@@ -1220,10 +1242,11 @@ def phase_multistep_kernel():
     from lbm_tpu_torch.kernels import fused_multistep as fm
     from lbm_tpu_torch.models import plasma
 
-    print("== phase 7a: window kernel vs plain version, K = 1, 4, 17")
+    print("== phase 7a: window kernel vs plain version, K = 1, 4, 17 (and "
+          "32 at 200^2)")
     device = torch.device("cuda")
     worst_f64 = 0.0
-    for ny, nx in ((37, 53), (200, 200)):
+    for ny, nx in MULTISTEP_SHAPES:
         for dmode in MULTISTEP_DTYPES:
             label, dtype, storage, delta = dmode[:4]
             line = []
@@ -1235,7 +1258,7 @@ def phase_multistep_kernel():
                 st = _seeded_state(cfg, device, seed=ny * 1000 + nx)
                 args = (st.f, st.g, st.Ex, st.Ey, st.phi)
                 notes = []
-                for k in (1, 4, 17):
+                for k in (1, 4, 17, 32) if ny == 200 else (1, 4, 17):
                     k_out = fm.collide_stream_multistep(*args, k_steps=k, **kw)
                     p_out = fm.collide_stream_multistep_reference(
                         *args, k_steps=k, **kw)
@@ -1303,15 +1326,63 @@ def _dft_flop(ny, nx):
             + ny * nx * (4 * h + 1 + 4))
 
 
+_SASS = {}
+
+
+def _issue_floor_ms(mode, sites):
+    """The collide stage's issue floor at `sites` sites a step: the static
+    FP32, FP64 and MUFU instruction counts (cuobjdump -sass of the built
+    library) of the per-step tile kernel of the mode's arithmetic ("f32",
+    "f32+delta", "bf16+delta", "f64"; a bf16 window's f32 work buffers
+    collide with the bf16 mode's arithmetic), a thread a site, over the
+    SMs' issue rates at the card's maximum SM clock:
+    scripts/trace_plasma3d_torch.py's model, the largest of the three
+    pipes' times."""
+    from collections import Counter
+    from lbm_tpu_torch.kernels import build
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import trace_plasma3d_torch as t3
+    if not _SASS:
+        _SASS.update(t3.sass_counts(str(build.build()),
+                                    lambda n: "plasma_tiles_kernel" in n))
+        _SASS["clock"] = t3.max_sm_clock_hz()
+    args = {"f64": "Idd", "f32": "Iff", "f32+delta": "Iff",
+            "bf16+delta": "I13__nv_bfloat16f"}[mode]
+    args += ("Lb1E" if mode.endswith("delta") else "Lb0E") + \
+        ("Lb1E" if mode.startswith("bf16") else "Lb0E")
+    fn = [k for k in _SASS if f"plasma_tiles_kernel{args}E" in k]
+    require(len(fn) == 1, f"tile kernel of {mode}: {len(fn)} SASS matches")
+    t = t3.issue_ms(Counter(_SASS[fn[0]]), 1 / 32, sites, _SASS["clock"])
+    return max(t["fp32"], t["fp64"], t["mufu"])
+
+
+def _collide_bound_ms(sites):
+    """(least ms, "bytes" or "operations") of an f32 collide+stream call:
+    444 B a site (f, g, E, rho_q once) against the tile kernel's issue
+    floor."""
+    t_bytes = 444 * sites / HBM_BYTES_PER_S * 1e3
+    t_ops = _issue_floor_ms("f32", sites)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _multistep_bound_ms(n, k_steps, storage, fft):
     """(least ms, "bytes" or "operations") of one window at n x n f32
-    compute: the JAX kernel's 1,500 flop a site and step for the collision
-    plus the DFT solve as the kernel computes it, at the non-tensor f32
-    rate, or f and g read and written once."""
-    flop = (1500 * n * n + (_dft_flop(n, n) if fft else 0)) * k_steps
-    t_ops = flop / F32_FLOP_PER_S * 1e3
+    compute: K times the collide stage's issue floor plus the DFT solve's
+    flop as the kernel computes it at the non-tensor f32 rate, or f and g
+    read and written once."""
+    mode = "bf16+delta" if storage == "bf16" else "f32"
+    t_ops = (k_steps * _issue_floor_ms(mode, n * n)
+             + (_dft_flop(n, n) * k_steps / F32_FLOP_PER_S * 1e3 if fft
+                else 0.0))
     t_bytes = BYTES_PER_SITE[storage] * n * n / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _init_fields(cfg, device):
+    """(f, g, Ex, Ey, phi) of the initial state."""
+    from lbm_tpu_torch.models import plasma
+    st = plasma.init_state(cfg, device)
+    return st.f, st.g, st.Ex, st.Ey, st.phi
 
 
 # label, n, storage, poisson, bc, K, windows (one warm-up), chained
@@ -1398,6 +1469,13 @@ def phase_multistep_real_size():
             box[0] = o if len(o) == 5 else (*o, Ex, Ey, phi)
 
         ms = _device_ms(chained, reps)
+        # one input repeated: the initial state and the rollout's end state
+        init = _init_fields(cfg, device)
+        seeded = _device_ms(lambda: fm.collide_stream_multistep(
+            *init, k_steps=K, **kw), max(reps - 1, 1))
+        developed = _device_ms(lambda: fm.collide_stream_multistep(
+            *args, k_steps=K, **kw), max(reps - 1, 1))
+        del init
         bound, bound_by = _multistep_bound_ms(n, K, storage, kw["solve_fft"])
         print(f"{label}: {step_ms:.4f} ms/step, "
               f"{n * n / (step_ms * 1e-3) / 1e6:.1f} MLUPS (window "
@@ -1406,6 +1484,8 @@ def phase_multistep_real_size():
                                                    else "bitwise equal")
                   + "; ") if hold else "")
               + f"{ms:.4f} ms a launch chained ({ms / K:.4f} ms a step); "
+              f"one input: the initial state {seeded:.4f}, the end state "
+              f"{developed:.4f} ms; "
               f"bound {bound:.4f} ms by {bound_by} ({100 * bound / ms:.1f}% "
               f"of chained); plain {plain_ms:.1f} ms (1 call, K={k_plain}, "
               f"{plain_ms / k_plain:.2f} ms a step)")
@@ -3286,9 +3366,10 @@ def phase_gated_sharded():
 
 def _gated_bound_ms(rows, nx, k_steps, storage):
     """(least ms, "bytes" or "operations") of one gated window on a band of
-    rows x nx: f and g read and written once, against 1,500 flop a site
-    and step (the JAX kernel's cost estimate) at the f32 rate."""
-    t_ops = 1500 * rows * nx * k_steps / F32_FLOP_PER_S * 1e3
+    rows x nx: f and g read and written once, against K times the collide
+    stage's issue floor (_issue_floor_ms)."""
+    t_ops = k_steps * _issue_floor_ms(
+        "bf16+delta" if storage == "bf16" else "f32", rows * nx)
     t_bytes = BYTES_PER_SITE[storage] * rows * nx / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3327,6 +3408,10 @@ def phase_gated_real_size():
         band, walls = fm.window_inputs(arrays, rows, K)
         ms = _device_ms(lambda: fm.collide_stream_multistep_gated(
             *band, walls, k_steps=K, **kw), 3)
+        band0, _ = fm.window_inputs(_init_fields(cfg, device)[:4], rows, K)
+        ms0 = _device_ms(lambda: fm.collide_stream_multistep_gated(
+            *band0, walls, k_steps=K, **kw), 3)
+        del band0
         torch.cuda.synchronize()
         tp = time.perf_counter()
         fm.collide_stream_multistep_gated_reference(*band, walls, k_steps=K,
@@ -3337,7 +3422,7 @@ def phase_gated_real_size():
         shape = f"{band[2].shape[0]}x{n}"
         line.append(f"{cards} card{'s' if cards > 1 else ''}: band {shape} "
                     f"walls {walls} {ms:.4f} ms a launch ({ms / K:.4f} a "
-                    f"step), bound {bound:.4f} by {bound_by} "
+                    f"step; the initial state {ms0:.4f}), bound {bound:.4f} by {bound_by} "
                     f"({100 * bound / ms:.1f}%), plain {plain_ms:.1f} ms")
         if cards == 1:
             out = (ms, plain_ms, bound, bound_by,
@@ -3463,7 +3548,8 @@ def main(argv=None) -> int:
         "launches": launches["collide_stream"],
         "max_abs_err": golden_err, "max_abs_err_at": "200x200 f64",
         "ms": timings["native"], "plain_ms": timings["plain"],
-        "bound_ms": 444 * n * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": _collide_bound_ms(n * n)[0],
+        "bound_by": _collide_bound_ms(n * n)[1],
         "library_ms": None, "ms_at": "2048x2048 f32"}]
     for name, source, replaces, err, err_at in (
             ("solve_iter", "poisson_iter.cu",

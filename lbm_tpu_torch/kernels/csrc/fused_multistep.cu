@@ -13,15 +13,16 @@
 // runs, so the banded wrapper has no counterpart.
 //
 // A step, as the per-step path runs it (src/plasma.cpp:476-523):
-//   1. collide + push-stream, one thread per site, through
-//      multistep_site.cuh's collide_stream_site, which collides through
-//      plasma_site.cuh's collide_site (the per-step kernel's body, so the
-//      two cannot drift apart). The steps ping-pong two work buffers in the
-//      compute type; with native storage the first step reads the input and
-//      the last one writes the output, and bf16 storage is decoded into a
-//      work buffer in a pass before the first step and encoded in a pass
-//      after the last, so it rounds once a window.
-//      In the solve modes the stage also writes rho_q.
+//   1. collide + push-stream: the tile program of plasma_tile.cuh (the
+//      per-step kernel's, so the two cannot drift apart), a persistent
+//      block walking runs of a row staged in shared memory by TMA, a
+//      thread a site. The
+//      steps ping-pong two work buffers in the compute type; with native
+//      storage the first step reads the input and the last one writes the
+//      output, and bf16 storage is decoded into a work buffer in a pass
+//      before the first step and encoded in a pass after the last, so it
+//      rounds once a window. In the solve modes the stage also writes
+//      rho_q.
 //      Bounce-back is written by the same stage, on a band whose y walls sit
 //      at the rows wall_b and wall_t (-1: none): (0, NY - 1) for the whole
 //      grid, the global walls' rows on an extended shard. A value whose
@@ -29,11 +30,13 @@
 //      reference's serial push loop, src/streaming.cpp:70-105, on the
 //      whole grid), a push into a wall row from beyond it is dropped, and
 //      of the values that land on one slot only the winner is stored, so
-//      every slot is written by exactly one thread and no second pass has
-//      to read and rewrite edge values in place. The 8 corner holes keep
-//      stale values: the site's own pre-collision f for the f pass and its
-//      post-collision f for the g pass, plus neutral_ref * w_i for species 2
-//      under delta storage.
+//      every slot is written exactly once and no second pass has to read
+//      and rewrite edge values in place (multistep_site.cuh's pushes). The
+//      8 corner holes keep stale values: the site's own pre-collision f for
+//      the f pass and its post-collision f for the g pass, plus
+//      neutral_ref * w_i for species 2 under delta storage.
+//      The stage reads by TMA what the step before wrote with ordinary
+//      stores, so the grid barriers between them fence the proxies.
 //   2. the field:
 //      * constant E (the NONE solver, or FFT under bounce-back, the
 //        reference's no-op solve): no stage; with kill_field every step
@@ -54,19 +57,19 @@
 // order than torch.matmul's.
 //
 // Bound: a window must read f and g once and write them once (432 B/site
-// in f32, 216 in bf16), and does ~1,500 flop a site and step (the TPU
-// kernel's cost estimate), plus ~12 max(NY, NX) a site and step for the
-// DFT as its loops count it: by operations at K >= ~4. This first version
-// sends every step's state through device memory (432 B/site and step in
-// the compute type, f32 for bf16 storage) and multiplies the DFT matrices
-// with untiled loops; spatial blocking and tensor-core DFTs are left to
-// later work.
+// in f32, 216 in bf16); its operations are K times the collide stage's,
+// an issue floor of the compiled body's instructions a site
+// (scripts/trace_plasma2d_torch.py counts them), plus ~12 max(NY, NX) a
+// site and step for the DFT as its loops count it. This version sends every
+// step's state through device memory (432 B/site and step in the compute
+// type, f32 for bf16 storage) and multiplies the DFT matrices with untiled
+// loops; temporal blocking in shared memory and tensor-core DFTs are left
+// to later work.
 
 #include <cstdint>
 #include <type_traits>
 
-#include "multistep_site.cuh"
-#include "plasma_site.cuh"
+#include "plasma_tile.cuh"
 #include "poisson_sweep.cuh"
 
 // Host-side description of a window. The ctypes Structure in
@@ -100,8 +103,6 @@ struct MultistepHost {
 
 namespace {
 
-constexpr int kThreads = 128;
-
 enum SolveKind { kConstE = 0, kFFT = 1, kIter = 2 };
 
 template <typename S, typename T>
@@ -130,48 +131,48 @@ struct Window {
   T hole_bg[kQ];   // neutral_ref * w_i, added to species 2's g holes (delta)
 };
 
-// Stage 1 of a step for every site, grid-stride: collide + push-stream
-// (periodic, or with the band's walls) from (f, g) into (f_out, g_out), all
-// in the compute type, through multistep_site.cuh. No __restrict__: the
-// work buffers are written and read again within the launch, which the
-// read-only cache path must not serve. Inlined: a call reads the constants
-// through a pointer instead of the kernel's parameter bank, and ran slower
-// a step at every size tried on the H100.
-template <typename S, typename T, bool DELTA, bool FAST>
-__device__ __forceinline__ void collide_all(const Window<S, T>& w, const Params<T>& p,
-                                            const T* f, const T* g, T* f_out, T* g_out,
-                                            const T* Ex, const T* Ey, bool zero_E, T* rho_q) {
-  const int64_t plane = static_cast<int64_t>(w.NY) * w.NX;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t site = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       site < plane; site += stride)
-    window::collide_stream_site<T, DELTA, FAST>(w.band, f, g, f_out, g_out, Ex, Ey, zero_E,
-                                                rho_q, site, p, w.hole_bg);
-}
-
-// Stage 1 of step k: input, output and work buffers by position in the
-// window (two work buffers alternate between the steps). Under bf16 storage
-// the input was decoded into the second work buffer before the first step
-// and the last step's buffer is encoded after it, so every step runs the
-// one collide body of the compute type.
-template <typename S, typename T, bool DELTA, bool FAST>
+// Stage 1 of step k: collide + push-stream from the step's input to its
+// output, through the tile program (sm: its shared memory; seq: the runs
+// this block has issued). Input, output and work buffers by position in
+// the window (two work buffers alternate between the steps). Under bf16
+// storage the input was decoded into the second work buffer before the
+// first step and the last step's buffer is encoded after it, so every step
+// runs the one collide body of the compute type.
+template <typename S, typename T, bool DELTA, bool FAST, bool WALLS>
 __device__ __forceinline__ void step_stage(const Window<S, T>& w, const Params<T>& p, int k,
-                                           const T* Ex, const T* Ey, bool zero_E, T* rho_q) {
-  const T* in_f = w.wf[(k + 1) & 1];   // written by step k - 1
-  const T* in_g = w.wg[(k + 1) & 1];
-  T* out_f = w.wf[k & 1];
-  T* out_g = w.wg[k & 1];
+                                           const T* Ex, const T* Ey, bool zero_E, T* rho_q,
+                                           unsigned char* sm, uint32_t& seq) {
+  Tile2Args<T, T> a;
+  a.f = w.wf[(k + 1) & 1];   // written by step k - 1
+  a.g = w.wg[(k + 1) & 1];
+  a.f_out = w.wf[k & 1];
+  a.g_out = w.wg[k & 1];
   if constexpr (std::is_same<S, T>::value) {
     if (k == 0) {
-      in_f = w.f_in;
-      in_g = w.g_in;
+      a.f = w.f_in;
+      a.g = w.g_in;
     }
     if (k == w.K - 1) {
-      out_f = w.f_out;
-      out_g = w.g_out;
+      a.f_out = w.f_out;
+      a.g_out = w.g_out;
     }
   }
-  collide_all<S, T, DELTA, FAST>(w, p, in_f, in_g, out_f, out_g, Ex, Ey, zero_E, rho_q);
+  a.ex = Ex;
+  a.ey = Ey;
+  a.rho_q = rho_q;
+  a.band = w.band;
+  a.stream = 1;
+  a.zero_E = zero_E;
+  a.aligned = tile2_aligned(a);
+  tile2_block<T, T, DELTA, FAST, WALLS>(a, p, sm, seq);
+}
+
+// A grid barrier between a stage that writes with ordinary stores and one
+// that may read the writes by TMA.
+__device__ __forceinline__ void tma_sync(cg::grid_group& grid) {
+  proxy_fence();
+  grid.sync();
+  proxy_fence();
 }
 
 // 8 bf16 in 16 bytes to 8 floats (exact), and back (round to nearest
@@ -195,10 +196,8 @@ __device__ __forceinline__ uint4 narrow(const float4& lo, const float4& hi) {
 }
 
 // The bf16 decode before the first step (DECODE) and the encode after the
-// last, for the two (3, 9, NY, NX) arrays of n elements, grid-stride. The
-// cooperative grid holds two blocks an SM (the collide stage's registers),
-// too few threads for element-wise loads to keep HBM busy, so each thread
-// moves vectors of 8 elements, two at a time with every load before the
+// last, for the two (3, 9, NY, NX) arrays of n elements, grid-stride. Each
+// thread moves vectors of 8 elements, two at a time with every load before the
 // stores; element by element where a pointer is not 16-byte aligned, and
 // for the tail.
 template <bool DECODE>
@@ -329,7 +328,7 @@ __device__ void dft_solve(const Window<S, T>& w, cg::grid_group& grid) {
 }
 
 template <typename S, typename T>
-__device__ void iter_solve(const Window<S, T>& w, int k, SweepShared<T, kThreads>& sh,
+__device__ void iter_solve(const Window<S, T>& w, int k, SweepShared<T, kThreads2<T>>& sh,
                            cg::grid_group& grid) {
   SweepArgs<T> a;
   a.phi0 = k == 0 ? w.phi_in : w.phi;   // sweeps in place from the second step
@@ -344,12 +343,12 @@ __device__ void iter_solve(const Window<S, T>& w, int k, SweepShared<T, kThreads
   a.omega = w.omega;
   a.one_minus_omega = w.one_minus_omega;
   switch (w.iter_kind * 2 + w.interior) {   // uniform across the grid
-    case 0: sweep_loop<T, kGS, false, kThreads>(a, sh, grid); break;
-    case 1: sweep_loop<T, kGS, true, kThreads>(a, sh, grid); break;
-    case 2: sweep_loop<T, kSOR, false, kThreads>(a, sh, grid); break;
-    case 3: sweep_loop<T, kSOR, true, kThreads>(a, sh, grid); break;
-    case 4: sweep_loop<T, kNPS, false, kThreads>(a, sh, grid); break;
-    default: sweep_loop<T, kNPS, true, kThreads>(a, sh, grid); break;
+    case 0: sweep_loop<T, kGS, false, kThreads2<T>>(a, sh, grid); break;
+    case 1: sweep_loop<T, kGS, true, kThreads2<T>>(a, sh, grid); break;
+    case 2: sweep_loop<T, kSOR, false, kThreads2<T>>(a, sh, grid); break;
+    case 3: sweep_loop<T, kSOR, true, kThreads2<T>>(a, sh, grid); break;
+    case 4: sweep_loop<T, kNPS, false, kThreads2<T>>(a, sh, grid); break;
+    default: sweep_loop<T, kNPS, true, kThreads2<T>>(a, sh, grid); break;
   }
   grid.sync();
 }
@@ -376,25 +375,33 @@ __device__ void efield(const Window<S, T>& w) {
   }
 }
 
-template <typename S, typename T, bool DELTA, bool FAST>
-__global__ void __launch_bounds__(kThreads)
-    multistep_kernel(const Window<S, T> w, const Params<T> p) {
+// WALLS: a bounce-back window (the whole grid's walls or a gated band's);
+// the periodic window compiles no wall code.
+template <typename S, typename T, bool DELTA, bool FAST, bool WALLS>
+__global__ void __launch_bounds__(kThreads2<T>, 3)
+    multistep_kernel(const __grid_constant__ Window<S, T> w,
+                     const __grid_constant__ Params<T> p) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ SweepShared<T, kThreads> sh;
+  __shared__ SweepShared<T, kThreads2<T>> sh;
+  extern __shared__ __align__(128) unsigned char sm[];
+  tile2_setup<T, T>(sm, w.hole_bg);
+  uint32_t seq = 0;
   constexpr bool kDecode = !std::is_same<S, T>::value;   // bf16 storage
   const int64_t n = static_cast<int64_t>(kS) * kQ * w.NY * w.NX;
   if constexpr (kDecode) {
     convert_bf16<true>(w.f_in, w.g_in, w.wf[1], w.wg[1], n);
-    grid.sync();
+    tma_sync(grid);
   }
   for (int k = 0; k < w.K; ++k) {
     if (w.solve == kConstE) {
-      step_stage<S, T, DELTA, FAST>(w, p, k, w.Ex_in, w.Ey_in, w.kill && k > 0, nullptr);
+      step_stage<S, T, DELTA, FAST, WALLS>(w, p, k, w.Ex_in, w.Ey_in, w.kill && k > 0, nullptr,
+                                           sm, seq);
     } else {
       // step 1 collides with the window's starting field, later steps with
       // the field the previous step solved for
-      step_stage<S, T, DELTA, FAST>(w, p, k, k == 0 ? w.Ex_in : w.Ex_out,
-                                    k == 0 ? w.Ey_in : w.Ey_out, false, w.rho_q);
+      step_stage<S, T, DELTA, FAST, WALLS>(w, p, k, k == 0 ? w.Ex_in : w.Ex_out,
+                                           k == 0 ? w.Ey_in : w.Ey_out, false, w.rho_q, sm,
+                                           seq);
       grid.sync();
       if (w.solve == kFFT) {
         dft_solve(w, grid);
@@ -403,7 +410,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       efield(w);
     }
-    if (k + 1 < w.K) grid.sync();
+    if (k + 1 < w.K) tma_sync(grid);
   }
   if constexpr (kDecode) {
     grid.sync();
@@ -412,21 +419,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename S, typename T, bool DELTA, bool FAST>
+template <typename S, typename T, bool DELTA, bool FAST, bool WALLS>
 cudaError_t launch(int solve, const MultistepHost& h, const HostParams& hp,
                    cudaStream_t stream) {
-  auto kernel = multistep_kernel<S, T, DELTA, FAST>;
+  using L = Tile2Smem<T, T>;
+  constexpr int threads = kThreads2<T>;
+  const auto kernel = multistep_kernel<S, T, DELTA, FAST, WALLS>;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::kBytes));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, L::kBytes);
   if (e != cudaSuccess) return e;
   if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int64_t sites = static_cast<int64_t>(h.NY) * h.NX;
-  const int64_t needed = (sites + kThreads - 1) / kThreads;
+  // every block resident: as few as the collide stage's rounds of runs
+  // allow (tile2_blocks), but a thread a site for the stages that walk the
+  // sites (the DFT passes) where the card holds them
+  const window::Band band{h.NY, h.NX, h.bounce, h.bounce ? h.wall_b : -1,
+                          h.bounce ? h.wall_t : -1};
   const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  const int64_t by_runs = tile2_blocks(tile2_runs<T>(band), resident);
+  const int64_t by_sites = (static_cast<int64_t>(h.NY) * h.NX + threads - 1) / threads;
+  const int64_t needed = by_runs > by_sites ? by_runs : by_sites;
   const unsigned blocks = static_cast<unsigned>(needed < resident ? needed : resident);
 
   Window<S, T> w;
@@ -458,7 +475,7 @@ cudaError_t launch(int solve, const MultistepHost& h, const HostParams& hp,
   w.H = h.NX / 2 + 1;
   w.Hp = h.Hp;
   w.K = h.K;
-  w.band = {h.NY, h.NX, h.bounce, h.bounce ? h.wall_b : -1, h.bounce ? h.wall_t : -1};
+  w.band = band;
   w.solve = solve;
   w.kill = h.kill;
   w.iter_kind = h.iter_kind;
@@ -472,15 +489,18 @@ cudaError_t launch(int solve, const MultistepHost& h, const HostParams& hp,
   Params<T> p = cast_params<T>(hp);
   void* params[] = {&w, &p};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
-                                  dim3(kThreads), params, 0, stream);
+                                  dim3(threads), params, L::kBytes, stream);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <typename S, typename T, bool FAST>
 cudaError_t launch_delta(int delta, int solve, const MultistepHost& h, const HostParams& hp,
                          cudaStream_t stream) {
-  return delta ? launch<S, T, true, FAST>(solve, h, hp, stream)
-               : launch<S, T, false, FAST>(solve, h, hp, stream);
+  if (h.bounce)
+    return delta ? launch<S, T, true, FAST, true>(solve, h, hp, stream)
+                 : launch<S, T, false, FAST, true>(solve, h, hp, stream);
+  return delta ? launch<S, T, true, FAST, false>(solve, h, hp, stream)
+               : launch<S, T, false, FAST, false>(solve, h, hp, stream);
 }
 
 }  // namespace

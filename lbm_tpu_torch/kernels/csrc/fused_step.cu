@@ -2,97 +2,92 @@
 // pass over device memory per step, and the same kernel without the stream.
 //
 // Replaces lbm_tpu/kernels/fused_step.py:collide_stream (the Pallas kernel
-// body _make_kernel) and, with STREAM = false (entry lbm_collide),
+// body _make_kernel) and, with the stream off (entry lbm_collide),
 // lbm_tpu/kernels/collide_pallas.py:fused_collide, which collides only and
-// leaves streaming to the caller. It computes what that kernel computes, which is
-// lbm_tpu/ops/macros.update_macro + ops/equilibrium + ops/collide +
-// periodic push-streaming, and returns rho_q. It is not the TPU's band
-// pipeline carried over: one thread owns one lattice site, with x fastest,
-// so neighbouring threads touch neighbouring addresses in every (NY, NX)
-// plane. The thread loads its 27 f, 27 g, Ex and Ey, collides them with
-// plasma_site.cuh's collide_site (shared with the K-step window kernel,
-// fused_multistep.cu), and writes each post-collision value to
-// ((y+cy) mod NY, (x+cx) mod NX) of the OUTPUT buffers (to (y, x) with
-// STREAM = false), and rho_q at (y, x).
-// No in-place update: the TPU kernel aliases its outputs onto its inputs,
-// but a push-stream in place races on a GPU, so the wrapper hands in fresh
-// output buffers. Numbers and build flags: plasma_site.cuh.
+// leaves streaming to the caller. It computes what that kernel computes,
+// which is lbm_tpu/ops/macros.update_macro + ops/equilibrium + ops/collide
+// + periodic push-streaming, and returns rho_q. It is not the TPU's band
+// pipeline carried over: a persistent block walks over runs of W x-sites of
+// a row, staged in shared memory by TMA with two stages in flight, a
+// thread a site, which stores each value straight to its destination
+// (plasma_tile.cuh, the same program as the K-step window kernel's collide
+// stage). No in-place update: the TPU
+// kernel aliases its outputs onto its inputs, but a push-stream in place
+// races on a GPU, so the wrapper hands in fresh output buffers. Numbers
+// and build flags: plasma_site.cuh.
 //
 // The third mode, the halo step (entry lbm_collide_stream_halo), replaces
 // lbm_tpu/kernels/fused_step.py:collide_stream_halo (a y-shard with
 // neighbour strips) and :collide_stream_halo2d (a (y, x) tile with
 // corner-extended y strips and x strips): one thread per site of the
 // shard's block extended by the neighbours' edge rows (and columns), which
-// collides with the same collide_site and pushes into the shard only
-// (csrc/halo_site.cuh). Its output equals this kernel's on the full grid,
-// bit for bit, at every shard site. Its traffic is the periodic kernel's
-// plus the strips' edge rows; like it, it is memory-bound.
+// collides with plasma_site.cuh's collide_site and pushes into the shard
+// only (csrc/halo_site.cuh). Its output equals this kernel's on the full
+// grid, bit for bit, at every shard site. Its traffic is the periodic
+// kernel's plus the strips' edge rows.
 //
 // Bound: every call reads and writes all of f and g, 27+27 values a site,
 // which is 432 B/site in f32 (216 B/site in bf16) plus 12 B of Ex, Ey and
-// rho_q, against ~3,000 flop/site: memory-bound on an H100 in f32, close
-// to balanced in bf16. This first version does the minimum traffic (each
-// value read once and written once) and nothing more: wide loads, shared-
-// memory staging and in-place streaming are left to later work.
+// rho_q; beside it an issue floor, the instructions of the compiled body a
+// site over the SMs' issue rates (scripts/trace_plasma2d_torch.py counts
+// them).
 
 #include "halo_site.cuh"
+#include "plasma_tile.cuh"
 
 namespace {
 
-// STREAM: push-stream periodically; false stores each value at its site.
-template <typename S, typename T, bool DELTA, bool FAST, bool STREAM>
-__global__ void collide_stream_kernel(const S* __restrict__ f, const S* __restrict__ g,
-                                      const T* __restrict__ Ex_in, const T* __restrict__ Ey_in,
-                                      S* __restrict__ f_out, S* __restrict__ g_out,
-                                      T* __restrict__ rho_q_out, int NY, int NX,
-                                      const Params<T> p) {
-  const int64_t plane = static_cast<int64_t>(NY) * NX;
-  const int64_t site = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (site >= plane) return;
-  const int y = static_cast<int>(site / NX);
-  const int x = static_cast<int>(site - static_cast<int64_t>(y) * NX);
-
-  T fv[kS][kQ], gv[kS][kQ];
-  load_site<S, T>(f, g, plane, site, fv, gv);
-  // push-stream destinations: rows and columns of the 3x3 neighbourhood
-  const int64_t row[3] = {static_cast<int64_t>(y == 0 ? NY - 1 : y - 1) * NX,
-                          static_cast<int64_t>(y) * NX,
-                          static_cast<int64_t>(y == NY - 1 ? 0 : y + 1) * NX};
-  const int col[3] = {x == 0 ? NX - 1 : x - 1, x, x == NX - 1 ? 0 : x + 1};
-  rho_q_out[site] = collide_site<T, DELTA, FAST>(
-      fv, gv, Ex_in[site], Ey_in[site], p, [&](int s, const T* fo, const T* go) {
-#pragma unroll
-        for (int i = 0; i < kQ; ++i) {
-          const int64_t dst =
-              (s * kQ + i) * plane + (STREAM ? row[cy_of(i) + 1] + col[cx_of(i) + 1] : site);
-          Io<S, T>::store(f_out + dst, fo[i]);
-          Io<S, T>::store(g_out + dst, go[i]);
-        }
-      });
+template <typename S, typename T, bool DELTA, bool FAST>
+__global__ void __launch_bounds__(kThreads2<S>, 3)
+    plasma_tiles_kernel(const __grid_constant__ Tile2Args<S, T> a,
+                        const __grid_constant__ Params<T> p) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  tile2_setup<S, T>(sm, static_cast<const T*>(nullptr));
+  uint32_t seq = 0;
+  tile2_block<S, T, DELTA, FAST, false>(a, p, sm, seq);
 }
 
-template <typename S, typename T, bool DELTA, bool FAST, bool STREAM>
-cudaError_t launch(const void* f, const void* g, const void* Ex, const void* Ey, void* f_out,
-                   void* g_out, void* rho_q, int NY, int NX, const HostParams& hp,
-                   cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  const int64_t sites = static_cast<int64_t>(NY) * NX;
-  const unsigned blocks = static_cast<unsigned>((sites + kThreads - 1) / kThreads);
-  collide_stream_kernel<S, T, DELTA, FAST, STREAM><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const S*>(f), static_cast<const S*>(g), static_cast<const T*>(Ex),
-      static_cast<const T*>(Ey), static_cast<S*>(f_out), static_cast<S*>(g_out),
-      static_cast<T*>(rho_q), NY, NX, cast_params<T>(hp));
+// A persistent grid of at most as many blocks as the SMs hold (tile2_blocks).
+// A failed attribute or launch returns its error: there is no other route.
+template <typename S, typename T, bool DELTA, bool FAST>
+cudaError_t launch_tiles(Tile2Args<S, T> a, const HostParams& hp, cudaStream_t stream) {
+  using L = Tile2Smem<S, T>;
+  const auto kernel = plasma_tiles_kernel<S, T, DELTA, FAST>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::kBytes));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads2<S>,
+                                                           L::kBytes)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  a.aligned = tile2_aligned(a);
+  const unsigned blocks = static_cast<unsigned>(
+      tile2_blocks(tile2_runs<S>(a.band), static_cast<int64_t>(per_sm) * sms));
+  kernel<<<blocks, kThreads2<S>, L::kBytes, stream>>>(a, cast_params<T>(hp));
   return cudaGetLastError();
 }
 
-template <typename S, typename T, bool FAST, bool STREAM = true>
-cudaError_t launch_delta(int delta, const void* f, const void* g, const void* Ex,
-                         const void* Ey, void* f_out, void* g_out, void* rho_q, int NY,
-                         int NX, const HostParams& hp, cudaStream_t stream) {
-  return delta ? launch<S, T, true, FAST, STREAM>(f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX,
-                                                  hp, stream)
-               : launch<S, T, false, FAST, STREAM>(f, g, Ex, Ey, f_out, g_out, rho_q, NY, NX,
-                                                   hp, stream);
+// stream: 1 push-streams periodically; 0 stores each value at its site.
+template <typename S, typename T, bool FAST>
+cudaError_t launch_delta(int delta, int stream_on, const void* f, const void* g, const void* Ex,
+                         const void* Ey, void* f_out, void* g_out, void* rho_q, int NY, int NX,
+                         const HostParams& hp, cudaStream_t stream) {
+  Tile2Args<S, T> a{};
+  a.f = static_cast<const S*>(f);
+  a.g = static_cast<const S*>(g);
+  a.ex = static_cast<const T*>(Ex);
+  a.ey = static_cast<const T*>(Ey);
+  a.f_out = static_cast<S*>(f_out);
+  a.g_out = static_cast<S*>(g_out);
+  a.rho_q = static_cast<T*>(rho_q);
+  a.band = {NY, NX, 0, -1, -1};
+  a.stream = stream_on;
+  return delta ? launch_tiles<S, T, true, FAST>(a, hp, stream)
+               : launch_tiles<S, T, false, FAST>(a, hp, stream);
 }
 
 template <typename S, typename T, bool DELTA, bool FAST>
@@ -139,18 +134,19 @@ extern "C" int lbm_collide_stream(int mode, int delta, const void* f, const void
                                   const void* Ex, const void* Ey, void* f_out, void* g_out,
                                   void* rho_q, int NY, int NX, const HostParams* hp,
                                   void* stream) {
-  if (NY <= 0 || NX <= 0 || hp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (NY <= 0 || NX <= 0 || static_cast<int64_t>(NY) * NX > INT32_MAX || hp == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_delta<double, double, false>(delta, f, g, Ex, Ey, f_out, g_out, rho_q, NY,
-                                                 NX, *hp, st);
+      return launch_delta<double, double, false>(delta, 1, f, g, Ex, Ey, f_out, g_out, rho_q,
+                                                 NY, NX, *hp, st);
     case 1:
-      return launch_delta<float, float, false>(delta, f, g, Ex, Ey, f_out, g_out, rho_q, NY,
+      return launch_delta<float, float, false>(delta, 1, f, g, Ex, Ey, f_out, g_out, rho_q, NY,
                                                NX, *hp, st);
     case 2:
-      return launch_delta<__nv_bfloat16, float, true>(delta, f, g, Ex, Ey, f_out, g_out, rho_q,
-                                                      NY, NX, *hp, st);
+      return launch_delta<__nv_bfloat16, float, true>(delta, 1, f, g, Ex, Ey, f_out, g_out,
+                                                      rho_q, NY, NX, *hp, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -162,15 +158,16 @@ extern "C" int lbm_collide_stream(int mode, int delta, const void* f, const void
 extern "C" int lbm_collide(int mode, int delta, const void* f, const void* g, const void* Ex,
                            const void* Ey, void* f_out, void* g_out, void* rho_q, int NY,
                            int NX, const HostParams* hp, void* stream) {
-  if (NY <= 0 || NX <= 0 || hp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (NY <= 0 || NX <= 0 || static_cast<int64_t>(NY) * NX > INT32_MAX || hp == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_delta<double, double, false, false>(delta, f, g, Ex, Ey, f_out, g_out,
-                                                        rho_q, NY, NX, *hp, st);
+      return launch_delta<double, double, false>(delta, 0, f, g, Ex, Ey, f_out, g_out, rho_q,
+                                                 NY, NX, *hp, st);
     case 1:
-      return launch_delta<float, float, false, false>(delta, f, g, Ex, Ey, f_out, g_out, rho_q,
-                                                      NY, NX, *hp, st);
+      return launch_delta<float, float, false>(delta, 0, f, g, Ex, Ey, f_out, g_out, rho_q, NY,
+                                               NX, *hp, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
-// The per-site work of the K-step window kernel (fused_multistep.cu): one
-// site's collision and push-stream into the next step's buffers, on a band
-// that is periodic in y, with or without bounce-back walls.
+// The wall rules of the K-step window kernel (fused_multistep.cu): where a
+// post-collision value goes when it is push-streamed on a band that is
+// periodic in y, with or without bounce-back walls. The tile program
+// (plasma_tile.cuh) applies them.
 //
 // A window steps a band of NY x NX sites (Band). Without walls it is
 // periodic in both axes. With walls, the x walls at x = 0 and x = NX - 1
@@ -32,8 +33,8 @@
 //
 // The functions are __device__ for the kernel; with host stand-ins for
 // cuda_bf16.h and cuda_runtime.h they build with the host's C++ compiler,
-// and the CPU tests hold a window bitwise against its plain version
-// (tests/test_torch_kernel_host.py).
+// and the CPU tests hold a window of the tile program bitwise against its
+// plain version (tests/test_torch_kernel_host.py).
 #pragma once
 
 #include <cstdint>
@@ -113,62 +114,6 @@ __host__ __device__ __forceinline__ unsigned pushes(int i, const Site& s) {
     default:
       return m;
   }
-}
-
-// One step of one site of the band: collide (f, g) at `site`, in the
-// compute type, and push-stream into (f_out, g_out); rho_q, where not
-// null, gets the site's charge density. zero_E collides with E = 0.
-// hole_bg: neutral_ref * w_i under delta storage, else unread.
-template <typename T, bool DELTA, bool FAST>
-__device__ __forceinline__ void collide_stream_site(const Band& g, const T* f, const T* gp,
-                                                    T* f_out, T* g_out, const T* Ex, const T* Ey,
-                                                    bool zero_E, T* rho_q, int64_t site,
-                                                    const Params<T>& p, const T (&hole_bg)[kQ]) {
-  const int NY = g.NY, NX = g.NX;
-  const int64_t plane = static_cast<int64_t>(NY) * NX;
-  const int y = static_cast<int>(site / NX);
-  const int x = static_cast<int>(site - static_cast<int64_t>(y) * NX);
-  T fv[kS][kQ], gv[kS][kQ];
-  load_site<T, T>(f, gp, plane, site, fv, gv);
-  const T ex = zero_E ? T(0.0) : Ex[site];
-  const T ey = zero_E ? T(0.0) : Ey[site];
-  const Site walls = site_of(y, x, g);
-  const bool edge = g.walls && near_wall(walls);
-  const int64_t row[3] = {static_cast<int64_t>(y == 0 ? NY - 1 : y - 1) * NX,
-                          static_cast<int64_t>(y) * NX,
-                          static_cast<int64_t>(y == NY - 1 ? 0 : y + 1) * NX};
-  const int col[3] = {x == 0 ? NX - 1 : x - 1, x, x == NX - 1 ? 0 : x + 1};
-  const T rq = collide_site<T, DELTA, FAST>(
-      fv, gv, ex, ey, p, [&](int s, const T* fo, const T* go) {
-#pragma unroll
-        for (int i = 0; i < kQ; ++i) {
-          const int64_t periodic = row[cy_of(i) + 1] + col[cx_of(i) + 1];
-          if (!edge) {
-            const int64_t dst = (s * kQ + i) * plane + periodic;
-            f_out[dst] = fo[i];
-            g_out[dst] = go[i];
-            continue;
-          }
-          const unsigned m = pushes(i, walls);
-          const int64_t base = (s * kQ + opp_of(i)) * plane;
-          const int64_t to[4] = {(s * kQ + i) * plane + periodic, base + site,
-                                 base + row[1] + col[cx_of(i) + 1],
-                                 base + row[cy_of(i) + 1] + x};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (m & (1u << c)) {
-              f_out[to[c]] = fo[i];
-              g_out[to[c]] = go[i];
-            }
-          }
-          if (m & 16u) {
-            const int64_t h = (s * kQ + i) * plane + site;
-            f_out[h] = fv[s][i];
-            g_out[h] = (DELTA && s == 2) ? fo[i] + hole_bg[i] : fo[i];
-          }
-        }
-      });
-  if (rho_q != nullptr) rho_q[site] = rq;
 }
 
 }  // namespace window

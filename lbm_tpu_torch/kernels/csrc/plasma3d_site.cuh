@@ -22,7 +22,7 @@
 // Numbers, as in plasma_site.cuh: constants folded in double on the host
 // (HostParams), cast once; true IEEE divisions (cu*cE / cs2 and
 // -(rho u^2) / kb are divided, as ops/collide._true_div makes torch divide;
-// recip3's 1 / x is correctly rounded too);
+// recip's 1 / x is correctly rounded too);
 // -fmad=false. The bf16 mode (FAST) decodes with __bfloat162float, computes
 // in float, takes the partial-fraction thermal term with the EXACT
 // reciprocal 1/x for all three species (the delta-stored neutral too: 3-D
@@ -86,35 +86,6 @@ __device__ __forceinline__ T wpoly3_dev(int i, const Vel3<T>& v, T c1, T c2) {
   return T(w3_of(i)) * (cu * c1 + (cu * cu) * c2 - v.u2t);
 }
 
-// a[s] for a species index known only at run time, without indexing a
-// register array (which would put it in local memory)
-template <typename T>
-__device__ __forceinline__ T pick3(int s, const T (&a)[kS]) {
-  return s == 0 ? a[0] : (s == 1 ? a[1] : a[2]);
-}
-
-// 1 / x, correctly rounded: the IEEE reciprocal, which is the quotient
-// 1 / x bit for bit and on the card skips the division's dividend checks
-__device__ __forceinline__ float recip3(float x) {
-#if defined(__CUDA_ARCH__)
-  return __frcp_rn(x);
-#else
-  return 1.0f / x;
-#endif
-}
-__device__ __forceinline__ double recip3(double x) {
-#if defined(__CUDA_ARCH__)
-  return __drcp_rn(x);
-#else
-  return 1.0 / x;
-#endif
-}
-
-template <typename T>
-__device__ __forceinline__ bool alive3(T r) {
-  return r >= T(1e-10);
-}
-
 // One species' moments at one site: r is its density (the neutral's
 // background added under DELTA), d the raw sum of the delta-stored
 // neutral's f (DELTA, s = 2; else 0); the velocity and temp are guarded
@@ -146,8 +117,8 @@ __device__ __forceinline__ Moments3<T> moments3(int s, const S* __restrict__ fs,
     d = r;
     r = p.neutral_ref + r;
   }
-  const bool a = alive3(r);
-  const T inv_rho = recip3(a ? r : T(1.0));
+  const bool a = alive(r);
+  const T inv_rho = recip(a ? r : T(1.0));
   T u = (px == r || px == -r) ? T(0.0) : px * inv_rho;
   T v = (py == r || py == -r) ? T(0.0) : py * inv_rho;
   T w = (pz == r || pz == -r) ? T(0.0) : pz * inv_rho;
@@ -170,8 +141,8 @@ __device__ __forceinline__ Vel3<T> pair3(int k, const T (&r)[kS], const T (&ux)[
   const T xa = k == 2 ? ux[1] : ux[0], xb = k == 0 ? ux[1] : ux[2];
   const T ya = k == 2 ? uy[1] : uy[0], yb = k == 0 ? uy[1] : uy[2];
   const T za = k == 2 ? uz[1] : uz[0], zb = k == 0 ? uz[1] : uz[2];
-  const bool both_dead = !alive3(ra) && !alive3(rb);
-  const T inv = recip3(both_dead ? T(1.0) : ra + rb);
+  const bool both_dead = !alive(ra) && !alive(rb);
+  const T inv = recip(both_dead ? T(1.0) : ra + rb);
   return vel3(both_dead ? T(0.0) : (ra * xa + rb * xb) * inv,
               both_dead ? T(0.0) : (ra * ya + rb * yb) * inv,
               both_dead ? T(0.0) : (ra * za + rb * zb) * inv, p);
@@ -180,7 +151,7 @@ __device__ __forceinline__ Vel3<T> pair3(int k, const T (&r)[kS], const T (&ux)[
 // rho_q of a site from the electrons' and ions' densities (guarded)
 template <typename T>
 __device__ __forceinline__ T rho_q3(T r_e, T r_i, const Params<T>& p) {
-  const T rq = p.qom_i * (alive3(r_i) ? r_i : T(0.0)) + p.qom_e * (alive3(r_e) ? r_e : T(0.0));
+  const T rq = p.qom_i * (alive(r_i) ? r_i : T(0.0)) + p.qom_e * (alive(r_e) ? r_e : T(0.0));
   return rq < T(1e-15) ? T(0.0) : rq;
 }
 
@@ -199,9 +170,9 @@ __device__ __forceinline__ void collide_species3(int s, const T (&r)[kS], const 
                                                  const S* __restrict__ fs,
                                                  const S* __restrict__ gs, int pitch,
                                                  const Params<T>& p, Need&& need, Emit&& emit) {
-  const T r_s = pick3(s, r);
-  const T rs = alive3(r_s) ? r_s : T(0.0);
-  const Vel3<T> vs[3] = {vel3(pick3(s, ux), pick3(s, uy), pick3(s, uz), p),
+  const T r_s = pick(s, r);
+  const T rs = alive(r_s) ? r_s : T(0.0);
+  const Vel3<T> vs[3] = {vel3(pick(s, ux), pick(s, uy), pick(s, uz), p),
                          pair3(pair1_of(s), r, ux, uy, uz, p),
                          pair3(pair2_of(s), r, ux, uy, uz, p)};
   T amp_f[3];
@@ -223,7 +194,7 @@ __device__ __forceinline__ void collide_species3(int s, const T (&r)[kS], const 
   if (FAST) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) tc[k] = rs * p.cs_a[s][k] + p.cs_b[s][k];
-    ratio = (ts * recip3(rs == T(0.0) ? T(1.0) : rs)) * T(1.0 / kQ3);
+    ratio = (ts * recip(rs == T(0.0) ? T(1.0) : rs)) * T(1.0 / kQ3);
   } else {
 #pragma unroll
     for (int k = 0; k < 3; ++k) tc[k] = p.tt_a[s][k] * rs;
@@ -273,7 +244,7 @@ __device__ __forceinline__ void collide_species3(int s, const T (&r)[kS], const 
       tm = T(-1.5);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        if (act[k]) tm = tm + tc[k] * recip3(qf[k] + dk[k]);
+        if (act[k]) tm = tm + tc[k] * recip(qf[k] + dk[k]);
     } else {
       // collide_species_g_dirs3, common-denominator energy-loss term
       geqd = tsi[0] * wp[0] + tsi[1] * wp[1] + tsi[2] * wp[2];

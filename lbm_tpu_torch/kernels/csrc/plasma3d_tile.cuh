@@ -59,18 +59,9 @@
 #pragma once
 
 #include <cstdint>
-#include <cstring>
 
 #include "plasma3d_site.cuh"
-
-#if defined(__CUDACC__)
-#define T3_FOR(t, n) for (int t = static_cast<int>(threadIdx.x); t < (n); t += static_cast<int>(blockDim.x))
-#define T3_SYNC() __syncthreads()
-#else
-#include <vector>
-#define T3_FOR(t, n) for (int t = 0; t < (n); ++t)
-#define T3_SYNC() ((void)0)
-#endif
+#include "tile_copy.cuh"
 
 namespace {
 
@@ -119,8 +110,6 @@ struct Tile3Args {
   Geom3 gm;
   int aligned;   // TMA bulk copies and 16-B vector stores (tile3_aligned)
 };
-
-__host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
 // The shared-memory layout of a block: two stages, the output tile, the
 // staged moments, the run's destination rows, the parameters and the
@@ -266,123 +255,6 @@ __device__ __forceinline__ int64_t dest_row3(const Geom3& gm, int z, int y, int 
   return (static_cast<int64_t>(zd) * gm.NY + yd) * gm.NX;
 }
 
-// ---- copies: TMA and cp.async on the card, plain copies on the host ----
-
-#if defined(__CUDA_ARCH__)
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-#endif
-
-__device__ __forceinline__ void bar_init3(uint64_t* bar) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-#else
-  (void)bar;
-#endif
-}
-
-// one arrival that expects `bytes` of TMA transactions
-__device__ __forceinline__ void bar_expect3(uint64_t* bar, uint32_t bytes) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-#else
-  (void)bar;
-  (void)bytes;
-#endif
-}
-
-// wait until the barrier's phase of this parity has completed; a barrier
-// that never completes traps (a failed launch) instead of hanging
-__device__ __forceinline__ void bar_wait3(uint64_t* bar, uint32_t parity) {
-#if defined(__CUDA_ARCH__)
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) break;
-    if (spins > (1u << 24)) __trap();
-  }
-#else
-  (void)bar;
-  (void)parity;
-#endif
-}
-
-// a 1-D TMA copy of `bytes` (a multiple of 16, both ends 16-B aligned)
-__device__ __forceinline__ void bulk_copy3(void* dst, const void* src, uint32_t bytes,
-                                           uint64_t* bar) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-#else
-  (void)bar;
-  std::memcpy(dst, src, bytes);
-#endif
-}
-
-// one element: cp.async where it is 4 or 8 B, through registers otherwise
-template <typename U>
-__device__ __forceinline__ void elem_copy3(U* dst, const U* src) {
-#if defined(__CUDA_ARCH__)
-  if constexpr (sizeof(U) == 4 || sizeof(U) == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-                 "n"(sizeof(U))
-                 : "memory");
-  } else {
-    *dst = *src;
-  }
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void async_commit3() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// all of this thread's cp.async groups but the newest have landed
-__device__ __forceinline__ void async_wait_prev3() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-#if defined(__CUDA_ARCH__)
-  *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
-#else
-  std::memcpy(dst, src, 16);
-#endif
-}
-
-// Lane 0 of each warp runs body(q) for every warps-th q < n: a TMA copy
-// takes uniform registers, so the lanes of one warp would issue theirs one
-// after another. On the host, every q in turn.
-template <typename Body>
-__device__ __forceinline__ void per_warp3(int n, Body&& body) {
-#if defined(__CUDA_ARCH__)
-  if ((threadIdx.x & 31) == 0)
-    for (int q = static_cast<int>(threadIdx.x >> 5); q < n;
-         q += static_cast<int>(blockDim.x >> 5))
-      body(q);
-#else
-  for (int q = 0; q < n; ++q) body(q);
-#endif
-}
-
 // ---- the block program ----
 
 // Issue the copies of run u into stage `st`: its planes by TMA (aligned) or
@@ -400,25 +272,25 @@ __device__ __forceinline__ void tile3_issue(const Tile3Args<S, T>& a, const Run3
 #if defined(__CUDA_ARCH__)
     if (threadIdx.x == 0)
 #endif
-      bar_expect3(bar, bytes);
-    per_warp3(kStaged3, [&](int q) {
+      bar_expect(bar, bytes);
+    per_warp(kStaged3, [&](int q) {
       if (q < kPlanes3)
-        bulk_copy3(pops + q * L::kPitchS, pop_src3(u, q) + u.x0, w * sizeof(S), bar);
+        bulk_copy(pops + q * L::kPitchS, pop_src3(u, q) + u.x0, w * sizeof(S), bar);
       else
-        bulk_copy3(flds + (q - kPlanes3) * L::kPitchT, fld_src3(u, q - kPlanes3) + u.x0,
+        bulk_copy(flds + (q - kPlanes3) * L::kPitchT, fld_src3(u, q - kPlanes3) + u.x0,
                    w * sizeof(T), bar);
     });
   } else {
-    T3_FOR(t, kStaged3 * L::W) {
+    TILE_FOR(t, kStaged3 * L::W) {
       const int q = t / L::W, e = t - q * L::W;
       if (e >= w) continue;
       if (q < kPlanes3)
-        elem_copy3(pops + q * L::kPitchS + e, pop_src3(u, q) + u.x0 + e);
+        elem_copy(pops + q * L::kPitchS + e, pop_src3(u, q) + u.x0 + e);
       else
-        elem_copy3(flds + (q - kPlanes3) * L::kPitchT + e, fld_src3(u, q - kPlanes3) + u.x0 + e);
+        elem_copy(flds + (q - kPlanes3) * L::kPitchT + e, fld_src3(u, q - kPlanes3) + u.x0 + e);
     }
   }
-  async_commit3();
+  async_commit();
   T3_SLOTS(k, e, kNbVals3) {
     const int side = e / kStaged3, q = e - side * kStaged3;
     const int x = side ? (u.x0 + w == NX ? 0 : u.x0 + w) : (u.x0 == 0 ? NX - 1 : u.x0 - 1);
@@ -478,7 +350,7 @@ __device__ __forceinline__ void tile3_run(const Tile3Args<S, T>& a, const Run3<S
   const int w = u.w;
 
   // pass 1: a species' moments at a site
-  T3_FOR(t, kTasks) {
+  TILE_FOR(t, kTasks) {
     int s, j;
     if (!task3<W>(t, w, s, j)) continue;
     const Moments3<T> m = moments3<S, T, DELTA>(
@@ -491,13 +363,13 @@ __device__ __forceinline__ void tile3_run(const Tile3Args<S, T>& a, const Run3<S
     mac[(4 * kS + s) * kSites + j] = m.temp;
     if (DELTA && s == 2) mac[5 * kS * kSites + j] = m.d;
   }
-  T3_SYNC();
+  TILE_SYNC();
 
   // pass 2: a species' collision at a site, into the output tile; and the
   // run's destination row of each direction
   int64_t* drow = reinterpret_cast<int64_t*>(sm + L::kRows);
-  T3_FOR(i, kQ3) drow[i] = dest_row3(a.gm, u.z, u.y, i);
-  T3_FOR(t, kTasks) {
+  TILE_FOR(i, kQ3) drow[i] = dest_row3(a.gm, u.z, u.y, i);
+  TILE_FOR(t, kTasks) {
     int s, j;
     if (!task3<W>(t, w, s, j)) continue;
     T r[kS], ux[kS], uy[kS], uz[kS];
@@ -525,14 +397,14 @@ __device__ __forceinline__ void tile3_run(const Tile3Args<S, T>& a, const Run3<S
     if (s == 0 && u.own && j >= 1 && j <= w)
       a.rho_q[u.roff + u.x0 + j - 1] = rho_q3(r[0], r[1], p);
   }
-  T3_SYNC();
+  TILE_SYNC();
 
   // the store: each (s, i) run of the tile to its destination row
   const int64_t ovol = static_cast<int64_t>(a.gm.NZ) * a.gm.NY * a.gm.NX;
   if (a.aligned) {
     constexpr int kV = 16 / sizeof(S), kNV = W / kV;
     const int nv = w / kV;
-    T3_FOR(t, kPlanes3 * kNV) {
+    TILE_FOR(t, kPlanes3 * kNV) {
       const int q = t / kNV, v = t - q * kNV;
       const int sq = q < kS * kQ3 ? q : q - kS * kQ3;
       const int64_t row = drow[sq % kQ3];
@@ -541,7 +413,7 @@ __device__ __forceinline__ void tile3_run(const Tile3Args<S, T>& a, const Run3<S
       copy16(dst, out + q * W + v * kV);
     }
   } else {
-    T3_FOR(t, kPlanes3 * W) {
+    TILE_FOR(t, kPlanes3 * W) {
       const int q = t / W, e = t - q * W;
       const int sq = q < kS * kQ3 ? q : q - kS * kQ3;
       const int64_t row = drow[sq % kQ3];
@@ -565,8 +437,8 @@ __device__ __forceinline__ void tile3_block(const Tile3Args<S, T>& a, const Para
   if (r >= runs) return;
   if (threadIdx.x == 0) {
     p = pc;
-    bar_init3(bar);
-    bar_init3(bar + 1);
+    bar_init(bar);
+    bar_init(bar + 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -582,10 +454,10 @@ __device__ __forceinline__ void tile3_block(const Tile3Args<S, T>& a, const Para
       un = run3_of(a, rn);
       tile3_issue(a, un, next, bar + ((k + 1) & 1), nb);
     } else {
-      async_commit3();   // an empty group: wait_group 1 then covers run k
+      async_commit();   // an empty group: wait_group 1 then covers run k
     }
-    if (a.aligned) bar_wait3(bar + (k & 1), (k >> 1) & 1);
-    async_wait_prev3();
+    if (a.aligned) bar_wait(bar + (k & 1), (k >> 1) & 1);
+    async_wait_prev();
     __syncthreads();
     tile3_run<S, T, DELTA, FAST>(a, u, sm + (k & 1) * L::kStage, sm, p);
     if (rn >= runs) break;

@@ -122,7 +122,7 @@ VARIANTS = {
                        "nb.fld[k] = T();")],
     # the divisions of pass 2's loop as products
     "no-divide": [("plasma3d_site.cuh", "cu * cE / cs2", "cu * cE * cs2"),
-                  ("plasma3d_site.cuh", "recip3(qf[k] + dk[k])",
+                  ("plasma3d_site.cuh", "recip(qf[k] + dk[k])",
                    "(qf[k] + dk[k])"),
                   ("plasma3d_site.cuh", ") / (d12 * ds[2]);",
                    ") * (d12 * ds[2]);")],
@@ -135,8 +135,8 @@ VARIANTS = {
     # the thermal terms' 1 / (qf + 2r) (bf16) or n / d, and -(rho u^2) / kb
     "no-force-divide": [("plasma3d_site.cuh", "cu * cE / cs2", "cu * cE * cs2")],
     # the reciprocals 1 / x as divisions
-    "divide": [("plasma3d_site.cuh", "  return __frcp_rn(x);", "  return 1.0f / x;"),
-               ("plasma3d_site.cuh", "  return __drcp_rn(x);", "  return 1.0 / x;")],
+    "divide": [("plasma_site.cuh", "  return __frcp_rn(x);", "  return 1.0f / x;"),
+               ("plasma_site.cuh", "  return __drcp_rn(x);", "  return 1.0 / x;")],
     # the register cap of 2 blocks of 224 threads (144), not
     # __launch_bounds__'s 128
     "maxnreg": [("fused_step3d.cu",
@@ -189,13 +189,14 @@ def _kernel_names(name):
         "halo3d" in name
 
 
-def ptxas(log: str):
-    """{entry: 'N registers, S B shared, spills'} of the 3-D kernels."""
+def ptxas(log: str, keep=_kernel_names):
+    """{entry: 'N registers, S B shared, spills'} of the kernels whose
+    mangled names `keep` accepts (default: the 3-D kernels)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = m.group(1) if _kernel_names(m.group(1)) else None
+            cur = m.group(1) if keep(m.group(1)) else None
             continue
         if cur is None:
             continue
@@ -207,8 +208,9 @@ def ptxas(log: str):
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def sass_counts(lib: str):
-    """{function: Counter of opcode classes} from cuobjdump -sass."""
+def sass_counts(lib: str, keep=_kernel_names):
+    """{function: Counter of opcode classes} from cuobjdump -sass, for the
+    functions whose mangled names `keep` accepts."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -217,7 +219,7 @@ def sass_counts(lib: str):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if _kernel_names(m.group(1)) else None
+            cur = m.group(1) if keep(m.group(1)) else None
             if cur:
                 out[cur] = Counter()
             continue
@@ -242,15 +244,16 @@ def issue_ms(counts: Counter, per_site: float, sites: int, clock: float):
             * 1e3 for cls, rate in ISSUE_RATES.items()}
 
 
-def patched_csrc(name: str):
-    """A copy of this checkout's csrc/ with VARIANTS[name] applied, under
-    the build directory."""
+def patched_csrc(name: str, variants=None):
+    """A copy of this checkout's csrc/ with variants[name] applied (default
+    VARIANTS; '+' combines), under the build directory."""
+    variants = VARIANTS if variants is None else variants
     from lbm_tpu_torch.kernels import build
     out = build.BUILD_ROOT / "variants" / name
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(build.CSRC, out)
     for fname, old, new in (e for v in name.split("+")
-                            for e in VARIANTS[v]):
+                            for e in variants[v]):
         path = out / fname
         text = path.read_text()
         if text.count(old) != 1:
@@ -258,6 +261,20 @@ def patched_csrc(name: str):
                                f"{fname}")
         path.write_text(text.replace(old, new))
     return out
+
+
+def device_ms(fn, reps: int) -> float:
+    """CUDA events over reps calls of fn after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def measure(reps: int, cells, variant):
@@ -276,17 +293,6 @@ def measure(reps: int, cells, variant):
     res = {"ptxas": ptxas(log), "sass": {k: dict(v) for k, v in
                                          sass_counts(lib).items()},
            "cells": {}}
-
-    def device_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
 
     state = {}
     for label, (nz, ny, nx), mode, geom in CELLS:
@@ -317,13 +323,14 @@ def measure(reps: int, cells, variant):
         p, e = f.element_size(), ex.element_size()
         if geom is None:
             ms = device_ms(lambda: fused_step3d.collide_stream3d(*arrays,
-                                                                 **phys))
+                                                                 **phys),
+                           reps)
             sites, edge, ext = nz * ny * nx, 0, nz * ny * nx
         else:
             zs, ys = (None if c is None else slice(*c) for c in geom)
             strips = fused_step3d.halo_inputs3d(arrays, zs, ys)
             ms = device_ms(lambda: fused_panel3d.collide_stream_shard3d(
-                *strips, **phys))
+                *strips, **phys), reps)
             shard, zhalo, yrows, corners = strips
             sites = shard[2].numel()
             edge = sum(grp[2].numel() for grp in (*(zhalo or ()),
@@ -340,9 +347,10 @@ def measure(reps: int, cells, variant):
     return res
 
 
-def run_checkout(path: str, reps: int, cells, variant=None):
-    """measure() in a process of its own, importing `path`'s package."""
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+def run_checkout(path: str, reps: int, cells, variant=None, script=__file__):
+    """`script --measure` (its measure()) in a process of its own,
+    importing `path`'s package; returns its JSON."""
+    r = subprocess.run([sys.executable, os.path.abspath(script),
                         "--measure", "--reps", str(reps),
                         *(f"--cells={c}" for c in cells),
                         *([f"--variant={variant}"] if variant else [])],

@@ -1,6 +1,6 @@
-"""The 3-D kernel's per-site code, the halo kernels', the cavity kernels' and
-the spectral solve's transforms, built for the CPU, against their plain
-versions.
+"""The 3-D and 2-D kernels' tile programs, the halo kernels' per-site code,
+the cavity kernels' and the spectral solve's transforms, built for the CPU,
+against their plain versions.
 
 lbm_tpu_torch/kernels/csrc/plasma3d_tile.cuh is the block program of
 csrc/fused_step3d.cu (both entries: the periodic step and the halo step of
@@ -17,6 +17,23 @@ at 12x16x8, 16x16x1 and 17x13x2 (x, y, z) with the card's run widths; and,
 built with runs of 8 sites, at a ragged last run (NX = 12), NX < W (3),
 NX = 1 and NX = W + 1 (9), for the periodic step and for a z-shard, a
 y-shard and a tile of each. chip_smoke.py phase 8a holds the CUDA build.
+
+lbm_tpu_torch/kernels/csrc/plasma_tile.cuh is the block program of the
+2-D plasma's collide: csrc/fused_step.cu's periodic step and collide
+without the stream, and every collide stage of csrc/fused_multistep.cu's
+window (the whole grid, periodic or walled, and the gated window's bands),
+with its arithmetic in plasma_site.cuh and its wall rules in
+multistep_site.cuh. Built the same way with runs of 8 sites (one build),
+the per-step modes must equal fused_step.collide_stream_reference and
+collide_reference bit for bit in every mode at the run edges NX = 1, 3,
+9, 17 and 24 (the aligned route); and a K = 3 constant-E window of it
+(decode, K stages ping-ponging in the compute type, odd stages walking the
+runs backwards, encode) must equal
+fused_multistep.collide_stream_multistep_reference and
+_gated_reference bit for bit on seven bands of a 20-row grid, at NX = 11
+and 24. Copies of the header with one line changed (a reflected slot, a
+corner hole's value, the x wrap, a ragged run's last site) must fail that
+(chip_smoke.py phases 3, 3c, 7a and 13a hold the CUDA build).
 
 lbm_tpu_torch/kernels/csrc/halo_site.cuh holds the per-site work of the
 halo kernels (csrc/fused_step.cu's halo mode): which strip a site of the
@@ -1000,38 +1017,57 @@ def test_tile_program_mutations_fail(tmp_path_factory, what):
         f"the '{what}' mutation passed the bitwise hold")
 
 
-_WINDOW_HOST = r"""
+_TILE2_HOST = r"""
 #include <utility>
 #include <vector>
 
-#include "multistep_site.cuh"
+#include "plasma_tile.cuh"
 
-// fused_multistep.cu's constant-E window, site by site: decode, K steps of
-// collide_stream_site ping-ponging in T, encode. The threads of a step
-// run in no order on the card; here odd steps walk the sites backwards,
-// so a slot that two sites write shows whichever order lets the wrong one
-// win.
+template <typename S, typename T, bool DELTA, bool FAST>
+void run_step(const void* f, const void* g, const void* Ex, const void* Ey,
+              void* fo, void* go, void* rq, int NY, int NX, int stream,
+              const HostParams& hp) {
+  Tile2Args<S, T> a{};
+  a.f = static_cast<const S*>(f);
+  a.g = static_cast<const S*>(g);
+  a.ex = static_cast<const T*>(Ex);
+  a.ey = static_cast<const T*>(Ey);
+  a.f_out = static_cast<S*>(fo);
+  a.g_out = static_cast<S*>(go);
+  a.rho_q = static_cast<T*>(rq);
+  a.band = {NY, NX, 0, -1, -1};
+  a.stream = stream;
+  a.aligned = tile2_aligned(a);
+  tile2_host<S, T, DELTA, FAST>(a, hp);
+}
+
+// fused_multistep.cu's constant-E window: decode, K collide stages of the
+// tile program ping-ponging in T, encode. The blocks of a stage run in no
+// order on the card; here odd steps walk the runs backwards, so a slot
+// that two runs write shows whichever order lets the wrong one win.
 template <typename S, typename T, bool DELTA, bool FAST>
 void run_window(const void* f, const void* g, const void* Ex, const void* Ey,
                 void* fo, void* go, const window::Band& band, int K, int kill,
                 const HostParams& hp) {
-  const Params<T> p = cast_params<T>(hp);
-  T bg[kQ];
-  for (int i = 0; i < kQ; ++i) bg[i] = static_cast<T>(hp.neutral_ref * w_of(i));
-  const int64_t plane = static_cast<int64_t>(band.NY) * band.NX;
-  const int64_t n = kS * kQ * plane;
+  const int64_t n = static_cast<int64_t>(kS) * kQ * band.NY * band.NX;
   std::vector<T> a(n), b(n), c(n), d(n);
   for (int64_t e = 0; e < n; ++e) {
     a[e] = Io<S, T>::load(static_cast<const S*>(f) + e);
     b[e] = Io<S, T>::load(static_cast<const S*>(g) + e);
   }
   for (int k = 0; k < K; ++k) {
-    for (int64_t e = 0; e < plane; ++e) {
-      const int64_t site = (k & 1) ? plane - 1 - e : e;
-      window::collide_stream_site<T, DELTA, FAST>(
-          band, a.data(), b.data(), c.data(), d.data(), static_cast<const T*>(Ex),
-          static_cast<const T*>(Ey), kill && k > 0, nullptr, site, p, bg);
-    }
+    Tile2Args<T, T> t{};
+    t.f = a.data();
+    t.g = b.data();
+    t.ex = static_cast<const T*>(Ex);
+    t.ey = static_cast<const T*>(Ey);
+    t.f_out = c.data();
+    t.g_out = d.data();
+    t.band = band;
+    t.stream = 1;
+    t.zero_E = kill && k > 0;
+    t.aligned = tile2_aligned(t);
+    tile2_host<T, T, DELTA, FAST>(t, hp, k & 1);
     std::swap(a, c);
     std::swap(b, d);
   }
@@ -1041,31 +1077,45 @@ void run_window(const void* f, const void* g, const void* Ex, const void* Ey,
   }
 }
 
-#define RUN_WINDOW(S, T, FAST)                                                \
-  (delta ? run_window<S, T, true, FAST>(f, g, Ex, Ey, fo, go, band, K, kill, \
-                                        *hp)                                  \
-         : run_window<S, T, false, FAST>(f, g, Ex, Ey, fo, go, band, K, kill,\
-                                         *hp))
+#define BY_DELTA(fn, S, T, FAST, ...)                 \
+  (delta ? fn<S, T, true, FAST>(__VA_ARGS__)         \
+         : fn<S, T, false, FAST>(__VA_ARGS__))
+#ifdef F64_ONLY
+#define BY_MODE(fn, ...) BY_DELTA(fn, double, double, false, __VA_ARGS__)
+#else
+#define BY_MODE(fn, ...)                                               \
+  (mode == 0   ? BY_DELTA(fn, double, double, false, __VA_ARGS__)      \
+   : mode == 1 ? BY_DELTA(fn, float, float, false, __VA_ARGS__)        \
+               : BY_DELTA(fn, __nv_bfloat16, float, true, __VA_ARGS__))
+#endif
+
+extern "C" int host_collide_stream2d(int mode, int delta, int stream,
+                                     const void* f, const void* g,
+                                     const void* Ex, const void* Ey, void* fo,
+                                     void* go, void* rq, int NY, int NX,
+                                     const HostParams* hp) {
+  BY_MODE(run_step, f, g, Ex, Ey, fo, go, rq, NY, NX, stream, *hp);
+  return 0;
+}
 
 extern "C" int host_window(int mode, int delta, const void* f, const void* g,
                            const void* Ex, const void* Ey, void* fo, void* go,
                            const int* geom, int K, int kill,
                            const HostParams* hp) {
   const window::Band band{geom[0], geom[1], geom[2], geom[3], geom[4]};
-  if (mode == 0) RUN_WINDOW(double, double, false);
-#ifndef F64_ONLY
-  else if (mode == 1) RUN_WINDOW(float, float, false);
-  else RUN_WINDOW(__nv_bfloat16, float, true);
-#endif
+  BY_MODE(run_window, f, g, Ex, Ey, fo, go, band, K, kill, *hp);
   return 0;
 }
 """
 
 
-def _host_window(tmp_path_factory, name, csrc=CSRC, flags=()):
-    so = _build_host(tmp_path_factory, name, _WINDOW_HOST, _STUBS, csrc,
-                     flags)
+def _host_tile2(tmp_path_factory, name, csrc=CSRC, flags=()):
+    """plasma_tile.cuh built with runs of 8 sites."""
+    so = _build_host(tmp_path_factory, name, _TILE2_HOST, _STUBS, csrc,
+                     ["-DPLASMA_RUN=8", *flags])
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    so.host_collide_stream2d.argtypes = [ci, ci, ci, *[vp] * 7, ci, ci, vp]
+    so.host_collide_stream2d.restype = ci
     so.host_window.argtypes = [ci, ci, *[vp] * 7, ci, ci, vp]
     so.host_window.restype = ci
     return so
@@ -1073,14 +1123,58 @@ def _host_window(tmp_path_factory, name, csrc=CSRC, flags=()):
 
 @pytest.fixture(scope="module")
 def host_window(tmp_path_factory):
-    return _host_window(tmp_path_factory, "host_window")
+    return _host_tile2(tmp_path_factory, "host_tile2")
+
+
+def _phys2d(cfg, delta):
+    u = cfg.units()
+    return dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
+                cs2=u.cs2, kb=u.kb,
+                neutral_ref=u.rho_n_init if delta else 0.0)
+
+
+# the run edges with runs of 8 sites (NX): a row of one site, a row
+# shorter than a run, a row one site longer than a run, two runs and a
+# ragged one, and three whole runs (NX * itemsize a multiple of 16 in every
+# mode: the aligned route, TMA copies and vector stores, here memcpy)
+_RUN_EDGES2 = (1, 3, 9, 17, 24)
+
+
+@pytest.mark.parametrize("nx", _RUN_EDGES2, ids=lambda n: f"nx={n}")
+def test_tile2_step_matches_plain_versions_bitwise(host_window, nx):
+    """plasma_tile.cuh's per-step modes at a run edge (NY = 5): the
+    periodic collide + stream against collide_stream_reference in f64, f32
+    and bf16 storage, with and without neutral-delta storage, and the
+    collide without the stream against collide_reference (f64, f32), bit
+    for bit."""
+    bad = []
+    for dtype, storage, delta in _MODES3D:
+        cfg = PlasmaConfig(NX=nx, NY=5, dtype=dtype, storage=storage,
+                           neutral_delta=delta)
+        phys = _phys2d(cfg, delta)
+        f, g, ex, ey = _seeded2d(cfg, 500 + nx)
+        hp = host_params(**phys)
+        streams = (1, 0) if storage == "native" else (1,)
+        for stream in streams:
+            plain = (fused_step.collide_stream_reference if stream
+                     else fused_step.collide_reference)
+            want = plain(f, g, ex, ey, **phys)
+            got = [torch.empty_like(w) for w in want]
+            host_window.host_collide_stream2d(
+                _MODES[(f.dtype, dtype)], int(delta), stream,
+                *(t.data_ptr() for t in (f, g, ex, ey, *got)), 5, nx,
+                ctypes.addressof(hp))
+            bad += [(f"{storage} {dtype} delta={delta} stream={stream}", nm)
+                    for nm, a, b in zip(("f", "g", "rho_q"), got, want)
+                    if not torch.equal(a, b)]
+    assert bad == []
 
 
 _WINDOW_MODES = [(torch.float64, "native", False),
                  (torch.float64, "native", True),
                  (torch.float32, "native", True),
                  (torch.float32, "bf16", True)]
-# (label, shards, shard) of a 20x11 bounce-back grid (NY x NX): the whole
+# (label, shards, shard) of a 20-row bounce-back grid (NY x NX): the whole
 # grid (walls at rows 0 and NY-1), the one rank's band that holds both
 # walls, the bottom and top shards of a cut in 2 and the middle shard of a
 # cut in 3 (neither wall: periodic in y with the x walls); "periodic" is
@@ -1090,11 +1184,15 @@ _WINDOW_BANDS = [("whole", 1, None), ("both", 1, 0), ("bottom", 2, 0),
                  ("top", 2, 1), ("middle", 3, 1), ("periodic", 1, None),
                  ("one row", 1, None)]
 _WINDOW_K = 3
+# the widths, with runs of 8 sites: a ragged last run (element copies and
+# stores), and three whole runs of which the middle one no x wall touches
+# (the aligned route)
+_WINDOW_NX = (11, 24)
 
 
 def _window_mismatches(so, modes):
-    """[(mode, band, kill, output)] where the host build of a K = 3 window
-    differs from its plain version: collide_stream_multistep_gated_
+    """[(mode, width, band, kill, output)] where the host build of a K = 3
+    window differs from its plain version: collide_stream_multistep_gated_
     reference on each band (ghost rows included), and on the whole grid
     collide_stream_multistep_reference, bounce-back or periodic."""
     from lbm_tpu_torch.config import BC
@@ -1102,80 +1200,82 @@ def _window_mismatches(so, modes):
     bad = []
     K = _WINDOW_K
     for dtype, storage, delta in modes:
-        cfg = PlasmaConfig(NX=11, NY=20, dtype=dtype, storage=storage,
-                           neutral_delta=delta, bc=BC.BOUNCE_BACK)
-        u = cfg.units()
-        phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e,
-                    m_i=u.m_i, cs2=u.cs2, kb=u.kb,
-                    neutral_ref=u.rho_n_init if delta else 0.0)
-        full = _seeded2d(cfg, 2011)
-        for label, n, shard in _WINDOW_BANDS:
-            if shard is None:
-                arrays, walls = full, (5, 5) if label == "one row" else (0, 19)
-            else:
-                R = 20 // n
-                arrays, walls = fm.window_inputs(
-                    full, slice(shard * R, (shard + 1) * R), K)
-            f, g, ex, ey = arrays
-            for kill in (True, False):
-                kw = dict(**phys, k_steps=K, kill_field=kill)
-                if label in ("whole", "periodic"):
-                    want = fm.collide_stream_multistep_reference(
-                        *arrays, bounce=label == "whole", **kw)
+        for nx in _WINDOW_NX:
+            cfg = PlasmaConfig(NX=nx, NY=20, dtype=dtype, storage=storage,
+                               neutral_delta=delta, bc=BC.BOUNCE_BACK)
+            phys = _phys2d(cfg, delta)
+            full = _seeded2d(cfg, 2000 + nx)
+            for label, n, shard in _WINDOW_BANDS:
+                if shard is None:
+                    arrays = full
+                    walls = (5, 5) if label == "one row" else (0, 19)
                 else:
-                    want = fm.collide_stream_multistep_gated_reference(
-                        *arrays, walls, **kw)
-                got = (torch.empty_like(f), torch.empty_like(g))
-                geom = (ctypes.c_int * 5)(*ex.shape, int(label != "periodic"),
-                                          *walls)
-                hp = host_params(**phys)
-                so.host_window(_MODES[(f.dtype, dtype)], int(delta),
-                               *(t.data_ptr() for t in (f, g, ex, ey, *got)),
-                               geom, K, int(kill), ctypes.addressof(hp))
-                bad += [(f"{storage} {dtype} delta={delta}", label, kill, nm)
-                        for nm, a, b in zip(("f", "g"), got, want)
-                        if not torch.equal(a, b)]
+                    R = 20 // n
+                    arrays, walls = fm.window_inputs(
+                        full, slice(shard * R, (shard + 1) * R), K)
+                f, g, ex, ey = arrays
+                for kill in (True, False):
+                    kw = dict(**phys, k_steps=K, kill_field=kill)
+                    if label in ("whole", "periodic"):
+                        want = fm.collide_stream_multistep_reference(
+                            *arrays, bounce=label == "whole", **kw)
+                    else:
+                        want = fm.collide_stream_multistep_gated_reference(
+                            *arrays, walls, **kw)
+                    got = (torch.empty_like(f), torch.empty_like(g))
+                    geom = (ctypes.c_int * 5)(
+                        *ex.shape, int(label != "periodic"), *walls)
+                    hp = host_params(**phys)
+                    so.host_window(
+                        _MODES[(f.dtype, dtype)], int(delta),
+                        *(t.data_ptr() for t in (f, g, ex, ey, *got)), geom,
+                        K, int(kill), ctypes.addressof(hp))
+                    bad += [(f"{storage} {dtype} delta={delta}", nx, label,
+                             kill, nm)
+                            for nm, a, b in zip(("f", "g"), got, want)
+                            if not torch.equal(a, b)]
     return bad
 
 
 def test_window_site_code_matches_plain_versions_bitwise(host_window):
-    """csrc/multistep_site.cuh, one K = 3 window of the constant-E mode,
-    against the plain versions, bit for bit, in f64, f32 and bf16 storage,
-    with and without neutral-delta storage and the kill quirk: the gated
-    window on bands that hold both walls, one wall or neither (the whole
-    extended band, ghost rows included) and both walls on one row, and the
+    """plasma_tile.cuh as the window kernel's collide stage, one K = 3
+    window of the constant-E mode, against the plain versions, bit for bit,
+    in f64, f32 and bf16 storage, with and without neutral-delta storage
+    and the kill quirk, at a ragged and an aligned width: the gated window
+    on bands that hold both walls, one wall or neither (the whole extended
+    band, ghost rows included) and both walls on one row, and the
     whole-grid window with walls at rows 0 and NY-1 and without walls."""
     assert _window_mismatches(host_window, _WINDOW_MODES) == []
 
 
-# one-line changes of multistep_site.cuh, each of which the bitwise hold
-# must catch: (what it breaks, the line as it is, the line changed)
+# one-line changes of plasma_tile.cuh, each of which the bitwise hold must
+# catch: (what it breaks, the line as it is, the line changed)
 _WINDOW_MUTATIONS = {
-    "corner winner": (
-        "      return m | bit(s.yb && s.xin, 4u) | bit(s.xr && !s.dnt, 8u) |",
-        "      return m | bit(s.yb && s.xin, 4u) | bit(s.xr && !s.dnt && "
-        "!s.dnb, 8u) |"),
-    "wall-row suppression": (
-        "  const bool pass = !(cx == 1 && s.xr) && !(cx == -1 && s.xl) && "
-        "!(cy == 1 && s.upb) && !(cy == -1 && s.dnt);",
-        "  const bool pass = !(cx == 1 && s.xr) && !(cx == -1 && s.xl);"),
-    "hole row": (
-        "             bit((s.yb && s.xr) || (!s.yb && s.xl && s.yt), 16u);",
-        "             bit((s.yb && s.xr) || (!s.yb && s.xl && s.yb), 16u);"),
+    "wall slot": ("                                 base + row[cy_of(i) + 1] + x};",
+                  "                                 base + row[1] + x};"),
+    "corner hole": (
+        "(DELTA && s == 2) ? fo + hole_bg[i] : fo);",
+        "(DELTA && s == 2) ? fo + hole_bg[i] : go);"),
+    "x wrap": ("const int col[3] = {x == 0 ? NX - 1 : x - 1, x, "
+               "x == NX - 1 ? 0 : x + 1};",
+               "const int col[3] = {x == 0 ? NX - 1 : x - 1, x, "
+               "x == NX - 1 ? NX - 1 : x + 1};"),
+    "run's last site": ("  u.w = NX - u.x0 < W ? NX - u.x0 : W;",
+                        "  u.w = NX - u.x0 < W ? NX - u.x0 - 1 : W;"),
 }
 
 
 @pytest.mark.parametrize("what", list(_WINDOW_MUTATIONS))
 def test_window_site_code_mutations_fail(tmp_path_factory, what):
     before, after = _WINDOW_MUTATIONS[what]
-    csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_"))
+    csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_")
+                                   .replace("'", ""))
     for header in CSRC.glob("*.cuh"):
         text = header.read_text()
-        if header.name == "multistep_site.cuh":
+        if header.name == "plasma_tile.cuh":
             assert text.count(before) == 1, f"{what}: line not found"
             text = text.replace(before, after)
         (csrc / header.name).write_text(text)
-    so = _host_window(tmp_path_factory, "window_mutant", csrc,
-                      ["-DF64_ONLY"])
+    so = _host_tile2(tmp_path_factory, "window_mutant", csrc, ["-DF64_ONLY"])
     assert _window_mismatches(so, _WINDOW_MODES[:2]), (
         f"the '{what}' mutation passed the bitwise hold")
