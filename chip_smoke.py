@@ -46,6 +46,12 @@ phase fails:
      warmed past the ramp, f64, f32 and bf16 storage, at 37x53 and
      129x129; bitwise, or for stored and lean within the ladder f64 1e-12
      relative, f32 4 ulp, bf16 f one bf16 ulp (multistep bitwise only);
+     the step program's run edges (NX = 1, 3, 127, 129, 130, 256, 257, a
+     ragged strip, on one-row spans; 2053x130: spans of several rows, the
+     last ragged; 3x220000: NY = 3 below the plan's span), stored and
+     lean from rest and seeded, bitwise; both window routes at K = 1,
+     2, 17 on the largest square the resident route takes and the first
+     past it (the route printed), bitwise;
   6b. Ghia: lbm_tpu_torch.run_cavity.main at 129^2, Re = 100, u_lid = 0.1,
      10,000 steps, stored f32 and f64, lean f32, multistep 100 f32, each
      within the gate of tests/test_cavity.py (max|du| < 0.035, rms < 0.02,
@@ -53,9 +59,11 @@ phase fails:
      multistep); f64 mass drift < 1e-12;
   6c. cavity real sizes: bench.py's legs (1000^2 lean f32 and bf16 stored,
      512^2 multistep 256, 2048^2 multistep 32) and 2048^2 stored and lean
-     f32; ms/step, MLUPS, each kernel's device ms (chained as the rollout
-     chains it, and repeated on one input) beside its plain version's and
-     its bound; the state must stay finite.
+     f32; ms/step, MLUPS, each kernel's device ms chained as the rollout
+     chains it, from the rollout's end state (started from rest) and from a
+     seeded state, beside its plain version's, its bound and the step
+     program's issue floor, and the window's route; the state must stay
+     finite.
   7a. the K-step window kernel vs its plain version on a seeded state, in
      every mode (NONE periodic with and without the quirk, NONE and FFT
      under bounce-back, FFT + periodic, GS periodic with and without the
@@ -138,7 +146,9 @@ phase fails:
      y-shards (1-row strips, 8-row on the 4-cut), and 129^2 f64 cut into
      3 ragged 43-row shards; every shard bitwise equal to the single-device
      kernels on the full grid at its rows, and to its plain version (the
-     window on its whole extended block); each kernel's device ms at 2048^2
+     window on its whole extended block; the gated window's routes
+     printed: streaming at 2048^2, resident for K >= 2 on the 512^2 and
+     129^2 cuts); each kernel's device ms at 2048^2
      (a world of one) and 512x2048 (a 4-card shard) beside its bound, its
      plain version's and the single-device kernels' on the same input;
   11b. the cavity CLI with --shard 1 on a one-rank NCCL group: 128^2, Re
@@ -148,7 +158,8 @@ phase fails:
      129^2 for 10,000 steps within the Ghia gate;
   11c. 2048^2 f32 stored, lean and multistep K = 32 sharded over a world
      of one, beside the single-device rollouts: ms/step and MLUPS; the
-     state finite.
+     state finite, and the sharded end state bitwise equal to the
+     single-device one.
   12a. the 3-D halo kernel (collide_stream_halo3d on z-shards,
      collide_stream_panel3d with halo_rows on y-shards, _panel3d_zhalo on
      (dz, dy) tiles): seeded warm 64^3 columns in f64, f32 and bf16 + delta
@@ -875,11 +886,17 @@ CAVITY_FLOP = 170   # a site and step (the JAX kernels' cost estimate)
 
 
 def _cavity_bound_ms(kernel, sites, f_itemsize, c_itemsize, k_steps=1):
-    """(least ms, "bytes" or "operations") of one launch."""
+    """(least ms, "bytes" or "operations") of one launch: its bytes, or its
+    operations, the larger of 170 flop a site and step at the type's rate
+    and, in f32 compute, the step program's issue floor (_cavity_floor_ms)."""
     t_bytes = (_cavity_bytes_per_site(kernel, f_itemsize, c_itemsize)
                * sites / HBM_BYTES_PER_S * 1e3)
     flop_rate = F64_FLOP_PER_S if c_itemsize == 8 else F32_FLOP_PER_S
     t_ops = CAVITY_FLOP * k_steps * sites / flop_rate * 1e3
+    if c_itemsize == 4:
+        t_ops = max(t_ops, _cavity_floor_ms(
+            kernel == "lean", "bf16" if f_itemsize == 2 else "native",
+            sites * k_steps))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -963,9 +980,56 @@ def _hold_cavity(what, name, mode, k_out, p_out):
     return worst, notes
 
 
+# the cavity step program's run edges on the card (strips of W = 128
+# sites in f32 and bf16, 64 in f64): (NY, NX); NX = 1, 3, W - 1, W + 1,
+# W + 2, 2 W, 2 W + 1 and a ragged last strip, on grids small enough that
+# the plan gives every task a span of one row (the card holds more than
+# 1,000 step blocks); then spans of several rows, the last ragged (2053
+# rows, a prime, over at most 12 blocks an SM x 132 SMs: 3 or more rows a
+# span in every mode), and NY = 3 shorter than the span the plan asks for
+# (1,719 strips in f32 and bf16, 3,438 in f64: the span is cut to the
+# grid's 3 rows)
+CAVITY_RUN_EDGES = [(13, 1), (9, 3), (7, 127), (37, 129), (11, 130),
+                    (5, 256), (5, 257), (3, 200), (301, 65), (2053, 130),
+                    (3, 220000)]
+CAVITY_ROUTE_KS = (1, 2, 17)
+
+
+def _resident_edge(mode_dtype, storage):
+    """The largest n whose n x n window of K = 2 the resident route takes on
+    this card (window_route), by bisection over n."""
+    import torch
+    from lbm_tpu_torch.kernels import fused_cavity as fc
+
+    dtype = torch.bfloat16 if storage == "bf16" else mode_dtype
+
+    def resident(n):
+        probe = torch.empty((9, n, n), dtype=dtype, device="cuda")
+        return fc.window_route(probe, 2) == "resident"
+
+    lo, hi = 2, 4096
+    require(resident(lo) and not resident(hi), "the resident route's edge "
+            "lies outside 2..4096")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if resident(mid) else (lo, mid)
+    return lo
+
+
+def _hold_bitwise(where, k_out, p_out):
+    """Every output bitwise equal to the plain version's."""
+    import torch
+    for field, kg, pg in zip(("f", "rho", "ux", "uy"), k_out, p_out):
+        require(kg.shape == pg.shape and kg.dtype == pg.dtype
+                and torch.equal(_bits(kg), _bits(pg)),
+                f"{where} {field}: not bitwise equal to the plain version")
+
+
 def phase_cavity_kernels():
     """Phase 6a: the three cavity kernels against their plain versions on
-    the same seeded states; returns each kernel's worst max|err|."""
+    the same seeded states, at the step program's run edges and on both
+    window routes at their size edge; returns each kernel's worst
+    max|err|."""
     import torch
     from lbm_tpu_torch.config import CavityConfig
     from lbm_tpu_torch.kernels import fused_cavity as fc
@@ -1009,6 +1073,57 @@ def phase_cavity_kernels():
             print(f"{label:>5} {ny}x{nx}: stored, lean, multistep K=1/4/17 "
                   f"from step 8: " + ("; ".join(line) if line
                                       else "all bitwise equal"))
+    # the step program's run edges: stored and lean, from rest (exact zero
+    # dividends) and seeded, bitwise
+    n_edges = 0
+    for ny, nx in CAVITY_RUN_EDGES:
+        for mode in CAVITY_MODES:
+            label, dtype, storage = mode[:3]
+            cfg = CavityConfig(NX=nx, NY=ny, dtype=getattr(torch, dtype),
+                               storage=storage, backend="fused")
+            for st in (cavity.init_state(cfg, device),
+                       _cavity_seeded(cfg, device, seed=ny * 1000 + nx)):
+                u = cavity._lid_speed(cfg, 15)
+                macros = (st.rho, st.ux, st.uy)
+                where = f"{label} {ny}x{nx} step {st.step}"
+                _hold_bitwise(f"{where} stored", fc.collide_stream_cavity(
+                    st.f, *macros, u, tau=cfg.tau),
+                    fc.collide_stream_cavity_reference(
+                        st.f, *macros, u, tau=cfg.tau))
+                _hold_bitwise(f"{where} lean", [fc.collide_stream_cavity_lean(
+                    st.f, u, tau=cfg.tau)],
+                    [fc.collide_stream_cavity_lean_reference(
+                        st.f, u, tau=cfg.tau)])
+                n_edges += 2
+    print(f"run edges {CAVITY_RUN_EDGES} (NY, NX), f64/f32/bf16, from rest "
+          f"and seeded: {n_edges} stored and lean holds, all bitwise equal")
+    # both window routes on the largest square the resident route takes
+    # and on the first square past it
+    for mode in CAVITY_MODES:
+        label, dtype, storage = mode[:3]
+        edge = _resident_edge(getattr(torch, dtype), storage)
+        for n in (edge, edge + 1):
+            cfg = CavityConfig(NX=n, NY=n, dtype=getattr(torch, dtype),
+                               storage=storage, backend="fused")
+            st = _cavity_seeded(cfg, device, seed=n)
+            routes = []
+            for k in CAVITY_ROUTE_KS:
+                kw = dict(tau=cfg.tau, k_steps=k, u_lid=cfg.u_lid,
+                          sigma=cfg.sigma)
+                route = fc.window_route(st.f, k)
+                require(route == ("resident" if n == edge and k > 1
+                                  else "streaming"),
+                        f"{label} {n}^2 K={k}: route {route}")
+                _hold_bitwise(f"{label} {n}^2 window K={k} ({route})",
+                              [fc.collide_stream_cavity_multistep(
+                                  st.f, 8, **kw)],
+                              [fc.collide_stream_cavity_multistep_reference(
+                                  st.f, 8, **kw)])
+                routes.append(f"K={k} {route}")
+            print(f"{label:>5} {n}^2 window from step 8: "
+                  + ", ".join(routes) + " - bitwise equal")
+            del st
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -1131,34 +1246,48 @@ def phase_cavity_real_size():
         worst[kernel] = max(worst[kernel], mx)
         del k_out, p_out
         # the launches chained as the rollout chains them, each on the
-        # previous one's output
-        box = [args]
+        # previous one's output: from the rollout's end state (a cavity
+        # started from rest, most of it still at rest) and from a seeded
+        # state 12 steps in (no exact zeros)
+        def chained_ms(first):
+            box = [first]
 
-        def chained():
-            a = box[0]
-            if K:
-                box[0] = (run(*a, **kw), a[1] + K)
-            elif lean:
-                box[0] = (run(*a, **kw), a[1])
-            else:
-                box[0] = (*run(*a, **kw), a[4])
+            def chained():
+                a = box[0]
+                if K:
+                    box[0] = (run(*a, **kw), a[1] + K)
+                elif lean:
+                    box[0] = (run(*a, **kw), a[1])
+                else:
+                    box[0] = (*run(*a, **kw), a[4])
+            return _device_ms(chained, reps)
 
-        ms = _device_ms(chained, reps)
+        ms = chained_ms(args)
+        sd = _cavity_seeded_on_card(cfg, device, seed=n * 10 + K)
+        u_sd = cavity._lid_speed(cfg, sd.step)
+        seeded_ms = chained_ms(
+            (sd.f, sd.step) if K else (sd.f, u_sd) if lean else
+            (sd.f, sd.rho, sd.ux, sd.uy, u_sd))
+        del sd
         plain_ms = _time_ms(lambda: plain(*args, **kw), plain_reps)
         bound, bound_by = _cavity_bound_ms(kind, n * n, f.element_size(), 4,
                                            max(K, 1))
-        per = f" ({ms / K:.4f} ms a step)" if K else ""
+        floor = _cavity_floor_ms(kind == "lean", storage, n * n * max(K, 1))
+        route = f", {fc.window_route(f, K)} route" if K else ""
+        per = (f" ({ms / K:.4f} / {seeded_ms / K:.4f} ms a step)" if K
+               else "")
         print(f"{label}: {step_ms:.4f} ms/step, "
               f"{n * n / (step_ms * 1e-3) / 1e6:.1f} MLUPS (window {warm}+"
               f"{steps} steps); {kernel} vs plain on the end state: "
               + ("; ".join(notes) if notes else "bitwise equal")
-              + f"; {ms:.4f} ms a launch chained{per}; bound {bound:.4f} ms "
-              f"by {bound_by} ({100 * bound / ms:.1f}% of chained); plain "
-              f"{plain_ms:.4f} ms")
+              + f"; {ms:.4f} ms a launch chained from rest, {seeded_ms:.4f} "
+              f"from a seeded state{per}{route}; bound {bound:.4f} ms by "
+              f"{bound_by} ({100 * bound / ms:.1f}% of chained); issue floor "
+              f"{floor:.4f} ms; plain {plain_ms:.4f} ms")
         if n == 2048:
             out[kernel] = (ms, plain_ms, bound, bound_by,
                            "2048x2048 f32 chained" + (f" K={K}" if K else ""))
-        del state, f, args, box
+        del state, f, args
         torch.cuda.empty_cache()
     return out, worst
 
@@ -1343,8 +1472,9 @@ def _issue_floor_ms(mode, sites):
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import trace_plasma3d_torch as t3
     if not _SASS:
-        _SASS.update(t3.sass_counts(str(build.build()),
-                                    lambda n: "plasma_tiles_kernel" in n))
+        _SASS.update(t3.sass_counts(
+            str(build.build()), lambda n: "plasma_tiles_kernel" in n
+            or "cavity_step_kernel" in n))
         _SASS["clock"] = t3.max_sm_clock_hz()
     args = {"f64": "Idd", "f32": "Iff", "f32+delta": "Iff",
             "bf16+delta": "I13__nv_bfloat16f"}[mode]
@@ -1352,6 +1482,26 @@ def _issue_floor_ms(mode, sites):
         ("Lb1E" if mode.startswith("bf16") else "Lb0E")
     fn = [k for k in _SASS if f"plasma_tiles_kernel{args}E" in k]
     require(len(fn) == 1, f"tile kernel of {mode}: {len(fn)} SASS matches")
+    t = t3.issue_ms(Counter(_SASS[fn[0]]), 1 / 32, sites, _SASS["clock"])
+    return max(t["fp32"], t["fp64"], t["mufu"])
+
+
+def _cavity_floor_ms(lean, storage, sites):
+    """The cavity step program's issue floor at `sites` sites (a window: K
+    times its sites): _issue_floor_ms's model on the f32 (bf16: bf16
+    storage) cavity_step_kernel of the stored or lean form. The kernel
+    holds one copy of the collision (one call of collide_row) and one of
+    the pull and store, each run once a site; the edge columns and span
+    ends that the tasks collide again (3-8% more collisions) are left out,
+    so the floor stays below the work."""
+    from collections import Counter
+    _issue_floor_ms("f32", 1)   # loads the SASS counts and the clock
+    t3 = sys.modules["trace_plasma3d_torch"]
+    args = ("I13__nv_bfloat16f" if storage == "bf16" else "Iff") + \
+        f"Lb{int(lean)}E"
+    fn = [k for k in _SASS if f"cavity_step_kernel{args}" in k]
+    require(len(fn) == 1, f"cavity step kernel {args}: {len(fn)} SASS "
+            f"matches")
     t = t3.issue_ms(Counter(_SASS[fn[0]]), 1 / 32, sites, _SASS["clock"])
     return max(t["fp32"], t["fp64"], t["mufu"])
 
@@ -2411,7 +2561,7 @@ def _cavity_halo_bound_ms(name, f, rows_ext=None, k_steps=1):
     (9, NY, NX): the stored step reads and writes f and the three macros
     and reads the two strip rows (96 B/site in f32, 60 with bf16 f), the
     lean step f alone (72 / 36); the window (rows_ext rows of the extended
-    block) f once, and 170 flop a site and step."""
+    block) f once, and its operations (_cavity_bound_ms)."""
     _, ny, nx = f.shape
     p = f.element_size()
     c = 8 if p == 8 else 4
@@ -2469,7 +2619,7 @@ def phase_cavity_halo_kernels():
         windows = {k: fc.collide_stream_cavity_multistep(st.f, 8, k_steps=k,
                                                          **kw)
                    for k in CAVITY_WINDOW_KS}
-        n_holds = 0
+        n_holds, routes = 0, set()
         for n in cuts:
             rows = NY // n
             depth = 8 if n == 4 else 1    # JAX's 8-row strips on one cut
@@ -2496,6 +2646,7 @@ def phase_cavity_halo_kernels():
                     ref = fc.collide_stream_cavity_multistep_gated_reference(
                         block, 8, wall_rows, k_steps=k, **kw)
                     name = "collide_stream_cavity_multistep_gated"
+                    routes.add(f"K={k} {fc.window_route(block, k)}")
                     require(torch.equal(_bits(got), _bits(ref)),
                             f"{where} window K={k}: the extended block not "
                             f"bitwise equal to the plain version")
@@ -2507,8 +2658,9 @@ def phase_cavity_halo_kernels():
             torch.cuda.synchronize()
         print(f"{label:>12}: {n_holds} holds on cuts {cuts} (stored, lean, "
               f"window K={'/'.join(map(str, CAVITY_WINDOW_KS))} from step "
-              f"8), every shard bitwise equal to the single-device kernels "
-              f"and to the plain versions")
+              f"8; gated window routes {sorted(routes)}), every shard "
+              f"bitwise equal to the single-device kernels and to the plain "
+              f"versions")
         if NY == 2048:
             stored_ms = _device_ms(lambda: fc.collide_stream_cavity(
                 st.f, *macros, u, tau=tau), 50)
@@ -2675,7 +2827,7 @@ def phase_cavity_sharded_real_size():
                 make = fused_sharded.make_fused_sharded_cavity_multistep_rollout
             else:
                 make = fused_sharded.make_fused_sharded_cavity_rollout
-            line = []
+            line, ends = [], []
             for side, roll_of in (
                     ("single-device", lambda k: cavity.make_rollout(cfg, k)),
                     ("sharded", lambda k: make(cfg, m, k))):
@@ -2697,9 +2849,16 @@ def phase_cavity_sharded_real_size():
                         f"2048^2 {label} {side}: state not finite")
                 line.append(f"{side} {ms:.4f} ms/step "
                             f"({n * n / (ms * 1e-3) / 1e6:.1f} MLUPS)")
-                del state
+                ends.append(sharding.gather_cavity_state(state, m)
+                            if side == "sharded" else state)
+            for k in ("f", "rho", "ux", "uy"):
+                require(torch.equal(_bits(getattr(ends[0], k)),
+                                    _bits(getattr(ends[1], k))),
+                        f"2048^2 {label}: the sharded end state's {k} not "
+                        f"bitwise equal to the single-device one's")
             print(f"2048^2 f32 {label:>12} ({warm} + {steps} steps): "
-                  + "; ".join(line))
+                  + "; ".join(line) + "; end states bitwise equal")
+            del ends, state
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()

@@ -138,6 +138,8 @@ SIGNATURES = {
     # b_row, l_row, stream
     "lbm_cavity_multistep": [_CI, *[_VP] * 4, _CI, _CI, _CD, _CD, _CD,
                              *[_CI] * 4, _VP],
+    # mode, k_steps, NY, NX
+    "lbm_cavity_multistep_route": [_CI] * 4,
     # mode, delta, solve_kind, window (MultistepHost*), params, stream
     "lbm_plasma_multistep": [_CI, _CI, _CI, _VP, _VP, _VP],
     "lbm_multistep_host_size": [],

@@ -1,6 +1,7 @@
-// The per-site work of the cavity kernels (fused_cavity.cu): the collision
-// of one pre-collision site, wherever it lies, and the pull, walls and lid
-// of one site of the block a launch steps.
+// The per-site work of the cavity kernels (fused_cavity.cu, through the
+// tile program of cavity_tile.cuh): the collision of one pre-collision
+// site, wherever it lies, and the pull, walls and lid of one site of the
+// block a launch steps.
 //
 // A launch steps a block of NY x NX sites (Geom). Its y-halo rows, y = -1
 // and y = NY, come from one of three places:
@@ -15,21 +16,24 @@
 //   * the block's other end (no strip): periodic in y within the block, the
 //     _roll_y of the gated window (collide_stream_cavity_multistep_gated),
 //     which runs on a shard extended by ghost rows.
-// Each thread collides its site once (collide_source_site). The pull then
-// takes f_i(y, x) = P_i(y - cy_i, x - cx_i), except where a wall blocks
-// that source: the side walls at x = 0 and x = NX - 1 on every row, the
-// bottom wall on row b_row and the lid on row l_row (-1: none). Every wall
-// rule of stream_cavity reflects the opposite direction of the same site,
-// so a blocked direction takes P_opp(i)(y, x) whichever wall blocks it, and
-// the lid adds d5 and d6 to 7 and 8 on its row (pull_site). Nothing beyond
-// a wall is read, and no x halo exists.
+// A site is collided by collide_source_site (or, in the window's resident
+// route, from shared memory by collide_site). The pull then takes
+// f_i(y, x) = P_i(y - cy_i, x - cx_i), except where a wall blocks that
+// source: the side walls at x = 0 and x = NX - 1 on every row, the bottom
+// wall on row b_row and the lid on row l_row (-1: none). Every wall rule of
+// stream_cavity reflects the opposite direction of the same site, so a
+// blocked direction takes P_opp(i)(y, x) whichever wall blocks it, and the
+// lid adds d5 and d6 to 7 and 8 on its row (pull_site). Nothing beyond a
+// wall is read, and no x halo exists.
 //
 // Numbers: every expression keeps the order of the JAX code and of the
 // port's plain version (ops/cavity.py, ops/stream.stream_cavity_gated);
-// constants are folded in double and cast once to T; (f - feq) / tau is an
-// IEEE division by T(tau); the dead-cell guard compares with T(1e-10).
-// bf16 holds f as deviations from the background w_i: decode float(b) +
-// float(w_i), encode to bf16 (nearest even) of x - float(w_i).
+// constants are folded in double and cast once to T; px / r, py / r and
+// (f - feq) / tau are IEEE divisions (div_pos: a zero dividend is its own
+// quotient and skips the division, but in the window's resident route);
+// the dead-cell guard compares with T(1e-10). bf16 holds f as deviations
+// from the background w_i: decode float(b) + float(w_i), encode to bf16
+// (nearest even) of x - float(w_i).
 //
 // The functions are __device__ for the kernels; with host stand-ins for
 // cuda_bf16.h they build with the host's C++ compiler, and the CPU tests
@@ -77,8 +81,22 @@ struct Io<__nv_bfloat16, float> {
   }
 };
 
+// x / d for d > 0 (a live density, tau): the IEEE quotient, where (ZERO)
+// x = +-0 is its own (0 / d keeps x's sign) and skips the division, whose
+// sequence on the card sends a zero dividend down its slow path
+// (plasma_site.cuh's div_cs2). A cavity started from rest holds exact zeros
+// ahead of its disturbance: the test takes the streaming kernels' time from
+// rest to the seeded state's. The window's resident route, latency-bound
+// on small grids where few zeros last, divides without it (7-10% faster
+// at 129^2: PERF.md §6).
+template <typename T, bool ZERO = true>
+__device__ __forceinline__ T div_pos(T x, T d) {
+  if constexpr (ZERO) return x == T(0) ? x : x / d;
+  return x / d;
+}
+
 // ops/cavity.macros_guarded
-template <typename T>
+template <typename T, bool ZERO = true>
 __device__ __forceinline__ void macros_guarded(const T f[kQ], T& rho, T& ux, T& uy) {
   T r = f[0];
 #pragma unroll
@@ -87,8 +105,8 @@ __device__ __forceinline__ void macros_guarded(const T f[kQ], T& rho, T& ux, T& 
   const T py = ((((f[2] + (-f[4])) + f[5]) + f[6]) + (-f[7])) + (-f[8]);
   const bool alive = r >= T(1e-10);
   rho = alive ? r : T(0.0);
-  ux = alive ? px / r : T(0.0);
-  uy = alive ? py / r : T(0.0);
+  ux = alive ? div_pos<T, ZERO>(px, r) : T(0.0);
+  uy = alive ? div_pos<T, ZERO>(py, r) : T(0.0);
 }
 
 // ops/cavity.feq_dir, zero-velocity terms elided as there
@@ -108,11 +126,20 @@ __device__ __forceinline__ T feq_dir(int i, T rho, T ux, T uy, T u2) {
 }
 
 // ops/cavity.collide_dirs
-template <typename T>
+template <typename T, bool ZERO = true>
 __device__ __forceinline__ void collide(const T f[kQ], T rho, T ux, T uy, T tau, T out[kQ]) {
   const T u2 = ux * ux + uy * uy;
 #pragma unroll
-  for (int i = 0; i < kQ; ++i) out[i] = f[i] - (f[i] - feq_dir(i, rho, ux, uy, u2)) / tau;
+  for (int i = 0; i < kQ; ++i)
+    out[i] = f[i] - div_pos<T, ZERO>(f[i] - feq_dir(i, rho, ux, uy, u2), tau);
+}
+
+// the lean collision of one site from its populations
+template <typename T, bool ZERO = true>
+__device__ __forceinline__ void collide_site(const T f[kQ], T tau, T post[kQ]) {
+  T rho, ux, uy;
+  macros_guarded<T, ZERO>(f, rho, ux, uy);
+  collide<T, ZERO>(f, rho, ux, uy, tau, post);
 }
 
 // The block a launch steps: NY x NX sites; du, dd: the depths of the

@@ -17,7 +17,11 @@
                                    the rows wall_rows names (-1: none).
 
 On CUDA tensors each wrapper checks its inputs and launches its entry of
-csrc/fused_cavity.cu into fresh output buffers, or raises; on CPU tensors it
+csrc/fused_cavity.cu (the block programs of csrc/cavity_tile.cuh) into
+fresh output buffers, or raises; the windows take the resident route (each
+block's band of rows in shared memory for all K steps) where the grid fits
+the card's shared memory and K >= 2, else the streaming route (a step a
+pass through device memory): window_route says which. On CPU tensors it
 runs its plain version (the *_reference functions: ops/cavity collide,
 ops/stream.stream_cavity_gated, macros_guarded in eager torch), which the
 kernels equal bit for bit. LAUNCHES counts each kernel's launches by the
@@ -362,6 +366,28 @@ def collide_stream_cavity_halo_lean(
                         0 if bottom else -1, NY - 1 if top else -1)[0]
 
 
+def window_route(f: torch.Tensor, k_steps: int) -> str:
+    """The route a window of k_steps on f (9, NY, NX) takes: "resident" or
+    "streaming" on a CUDA tensor (the current device's shared memory
+    decides), "plain" on the CPU."""
+    if f.device.type == "cpu":
+        return "plain"
+    return ("resident" if _resident_blocks("window_route", f, k_steps)
+            else "streaming")
+
+
+def _resident_blocks(name: str, f: torch.Tensor, k_steps: int) -> int:
+    """The resident route's blocks for a window of k_steps on the CUDA
+    tensor f; 0: the streaming route."""
+    mode = _check(name, f)
+    with torch.cuda.device(f.device):
+        r = build.load().lbm_cavity_multistep_route(mode, int(k_steps),
+                                                    *f.shape[1:])
+    if r < 0:
+        raise RuntimeError(f"{name}: cudaError_t {-r}")
+    return r
+
+
 def _launch_window(name: str, f: torch.Tensor, step0: int, k_steps: int,
                    u_lid: float, sigma: float, tau: float, b_row: int,
                    l_row: int) -> torch.Tensor:
@@ -369,8 +395,13 @@ def _launch_window(name: str, f: torch.Tensor, step0: int, k_steps: int,
     lib = build.load()
     _, NY, NX = f.shape
     f_out = torch.empty_like(f)
-    work = [torch.empty(f.shape, dtype=compute_dtype(f), device=f.device)
-            for _ in range(min(k_steps - 1, 2))]
+    # the resident route's edge-row exchange (2 parities x 6 rows a block),
+    # or the streaming route's two work buffers (one for K = 2, none for 1)
+    blocks = _resident_blocks(name, f, k_steps)
+    shapes = ([(12 * blocks, NX)] if blocks
+              else [f.shape] * min(k_steps - 1, 2))
+    work = [torch.empty(s, dtype=compute_dtype(f), device=f.device)
+            for s in shapes]
     ptrs = [w.data_ptr() for w in work] + [None] * (2 - len(work))
     stream = torch.cuda.current_stream(f.device).cuda_stream
     with torch.cuda.device(f.device):

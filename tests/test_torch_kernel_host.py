@@ -1,5 +1,5 @@
-"""The 3-D and 2-D kernels' tile programs, the halo kernels' per-site code,
-the cavity kernels' and the spectral solve's transforms, built for the CPU,
+"""The 3-D, 2-D and cavity kernels' tile programs, the halo kernels'
+per-site code and the spectral solve's transforms, built for the CPU,
 against their plain versions.
 
 lbm_tpu_torch/kernels/csrc/plasma3d_tile.cuh is the block program of
@@ -54,15 +54,27 @@ changed (the corner line taken, the axis that wraps, a strip's plane
 stride, the x-neighbour collided again at the row's wrap) must fail that
 (chip_smoke.py phase 12a holds the CUDA build).
 
-lbm_tpu_torch/kernels/csrc/cavity_site.cuh holds the per-site work of the
-cavity kernels (csrc/fused_cavity.cu): where a halo row comes from (a
-strip, the block's other end, or nowhere behind a wall), the collision, the
-pull with its walls and lid, and the window's lid ramp. A loop over the
-block's sites, built the same way, must equal the plain versions of the
-stored and lean halo steps and of the gated window bit for bit on ragged
-shards that hold the bottom wall, neither wall and the lid, and those of the
-single-device steps on the whole grid (chip_smoke.py phases 6a and 11a hold
-the CUDA build).
+lbm_tpu_torch/kernels/csrc/cavity_tile.cuh holds the block programs of the
+cavity kernels (csrc/fused_cavity.cu), with their per-site work in
+cavity_site.cuh: the step program (strips by spans of rows, a ring of four
+collided rows; where a halo row comes from: a strip, the block's other
+end, or nowhere behind a wall; the pull with its walls and lid) and the
+window's resident route (bands of rows kept across the window, their edge
+rows exchanged between two phases a step). Built the same way with blocks
+of 8 sites and resident blocks of 8 threads holding 4 sites (one build),
+the step program must equal the plain versions of the stored and lean
+halo steps and of the single-device steps bit for bit, with ragged spans
+and strips, on ragged shards that hold the bottom wall, neither wall and
+the lid, on the whole grid and at its run edges (NX = 1, 3, 7, 9, 10, 21,
+a grid of 3 rows), from a seeded state and from rest; both window routes
+(the streaming route's passes, and the resident route's blocks played
+phase by phase with the barrier between them) must equal the gated
+window's plain version on those shards and on periodic and walled blocks
+cut into 1-row, ragged and single bands, K = 1, 2, 3 and 17; div_pos must
+give the IEEE quotient for zero, subnormal, tiny and ordinary dividends;
+and copies of the headers with one line changed (a reflected slot, the
+ring's row lag, a published edge row, the lid's row) must fail
+(chip_smoke.py phases 6a and 11a hold the CUDA build).
 
 lbm_tpu_torch/kernels/csrc/fft_solve.cuh holds the three per-block programs
 of csrc/fft_solve.cu (two real rows a line forward, column panel solve, row
@@ -551,110 +563,142 @@ def test_halo3d_site_code_mutations_fail(tmp_path_factory, what):
 
 
 _CAVITY_HOST = r"""
-#include <type_traits>
 #include <vector>
 
-#include "cavity_site.cuh"
+#include "cavity_tile.cuh"
 
 using namespace cavity;
 
-// one step of the block: what the tiles of cavity_step_kernel do, site by
-// site: collide the block and its y-halo rows, then pull each site
-template <typename In, typename Out, typename T, bool LEAN>
-void host_step(const StepIn<In, T>& in, Out* fo, T* ro, T* xo, T* yo, const Geom& g, T tau,
-               T u) {
-  const int NY = g.NY, NX = g.NX;
-  std::vector<T> P(static_cast<size_t>(NY + 2) * NX * kQ);
-  const auto at = [&](int y, int x, int i) -> T& {
-    return P[(static_cast<size_t>(y + 1) * NX + x) * kQ + i];
-  };
-  for (int y = -1; y <= NY; ++y)
-    for (int x = 0; x < NX; ++x) {
-      T post[kQ];
-      if (!collide_source_site<In, T, LEAN>(in, g, y, x, tau, post)) continue;
-      for (int i = 0; i < kQ; ++i) at(y, x, i) = post[i];
-    }
-  for (int y = 0; y < NY; ++y)
-    for (int x = 0; x < NX; ++x) {
-      T out[kQ];
-      pull_site<T>([&](int i, int dy, int dx) { return at(y + dy, x + dx, i); }, g, y, x, u,
-                   out);
-      store_site<Out, T, LEAN>(out, fo, ro, xo, yo, static_cast<int64_t>(NY) * NX,
-                               static_cast<int64_t>(y) * NX + x);
-    }
-}
-
+// one step of the block: the step program's tasks one after another, the
+// plan made for `resident` blocks (odd counts walk the tasks backwards)
 template <typename S, typename T>
 void run_step(int lean, const void* const* p, void* const* o, double u, double tau,
-              const Geom& g) {
+              const Geom& g, int resident) {
   const StepIn<S, T> in{static_cast<const S*>(p[0]), static_cast<const T*>(p[1]),
                         static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
                         static_cast<const S*>(p[4]), static_cast<const T*>(p[5]),
                         static_cast<const S*>(p[6]), static_cast<const T*>(p[7])};
-  if (lean)
-    host_step<S, S, T, true>(in, static_cast<S*>(o[0]), nullptr, nullptr, nullptr, g,
-                             static_cast<T>(tau), static_cast<T>(u));
-  else
-    host_step<S, S, T, false>(in, static_cast<S*>(o[0]), static_cast<T*>(o[1]),
-                              static_cast<T*>(o[2]), static_cast<T*>(o[3]), g,
-                              static_cast<T>(tau), static_cast<T>(u));
+  const StepPlan plan = step_plan<T>(g.NY, g.NX, resident);
+  const bool rev = resident & 1;
+  if (lean) {
+    const StepTask<S, S, T, true> a{in, static_cast<S*>(o[0]), nullptr, nullptr,
+                                    nullptr};
+    step_host(a, g, plan, static_cast<T>(tau), static_cast<T>(u), rev);
+  } else {
+    const StepTask<S, S, T, false> a{in, static_cast<S*>(o[0]), static_cast<T*>(o[1]),
+                                     static_cast<T*>(o[2]), static_cast<T*>(o[3])};
+    step_host(a, g, plan, static_cast<T>(tau), static_cast<T>(u), rev);
+  }
 }
 
-// the window: cavity_multistep_kernel's steps, ping-ponging in T
+template <typename In, typename Out, typename T>
+void pass(const In* src, Out* dst, const Geom& g, const StepPlan& plan, T tau, T u,
+          bool rev) {
+  const StepTask<In, Out, T, true> a{
+      {src, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr},
+      dst, nullptr, nullptr, nullptr};
+  step_host(a, g, plan, tau, u, rev);
+}
+
+// the window: the resident route on `blocks` bands (route 1), or the
+// streaming route's passes ping-ponging in T (route 0); returns 1 if the
+// resident route refuses the grid
 template <typename S, typename T>
-void run_window(const void* f, void* fo, const Geom& g, const Window<T>& w) {
-  std::vector<T> a(static_cast<size_t>(kQ) * g.NY * g.NX), b(a.size());
-  const auto in = [](const auto* src) {
-    using In = std::remove_cv_t<std::remove_pointer_t<decltype(src)>>;
-    return StepIn<In, T>{src, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  };
+int run_window(const void* f, void* fo, const Geom& g, const Window<T>& w, int route,
+               int blocks) {
   const S* fs = static_cast<const S*>(f);
   S* fd = static_cast<S*>(fo);
+  if (route == 1) {
+    const ResPlan p = res_plan<T>(g.NY, g.NX, w.K, blocks, INT64_MAX);
+    if (p.blocks == 0) return 1;
+    res_host(fs, fd, g, w, p);
+    return 0;
+  }
+  std::vector<T> a(static_cast<size_t>(kQ) * g.NY * g.NX), b(a.size());
+  const StepPlan plan = step_plan<T>(g.NY, g.NX, blocks);
   for (int k = 0; k < w.K; ++k) {
     const T u = lid_ramp(w, k);
     T* prev = (k & 1) ? a.data() : b.data();
     T* next = (k & 1) ? b.data() : a.data();
+    const bool rev = k & 1;
     if (w.K == 1)
-      host_step<S, S, T, true>(in(fs), fd, nullptr, nullptr, nullptr, g, w.tau, u);
+      pass<S, S, T>(fs, fd, g, plan, w.tau, u, rev);
     else if (k == 0)
-      host_step<S, T, T, true>(in(fs), next, nullptr, nullptr, nullptr, g, w.tau, u);
+      pass<S, T, T>(fs, next, g, plan, w.tau, u, rev);
     else if (k == w.K - 1)
-      host_step<T, S, T, true>(in(prev), fd, nullptr, nullptr, nullptr, g, w.tau, u);
+      pass<T, S, T>(prev, fd, g, plan, w.tau, u, rev);
     else
-      host_step<T, T, T, true>(in(prev), next, nullptr, nullptr, nullptr, g, w.tau, u);
+      pass<T, T, T>(prev, next, g, plan, w.tau, u, rev);
+  }
+  return 0;
+}
+
+template <typename S, typename T>
+int window_of(const void* f, void* fo, const Geom& g, int t0, int K, double u_lid,
+              double sigma, double tau, int route, int blocks) {
+  return run_window<S, T>(f, fo, g, make_window<T>(t0, K, u_lid, sigma, tau), route,
+                          blocks);
+}
+
+#ifdef F64_ONLY
+#define BY_MODE(fn, ...) fn<double, double>(__VA_ARGS__)
+#else
+#define BY_MODE(fn, ...)                                              \
+  (mode == 0   ? fn<double, double>(__VA_ARGS__)                      \
+   : mode == 1 ? fn<float, float>(__VA_ARGS__)                        \
+               : fn<__nv_bfloat16, float>(__VA_ARGS__))
+#endif
+
+extern "C" int host_cavity_step(int mode, int lean, const void* const* p, void* const* o,
+                                double u, double tau, const int* geom, int resident) {
+  const Geom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
+  BY_MODE(run_step, lean, p, o, u, tau, g, resident);
+  return 0;
+}
+
+// div_pos element by element: out = x / d (f64 or f32 by mode)
+extern "C" void host_div_pos(int mode, const void* x, double d, void* out, int n) {
+  for (int k = 0; k < n; ++k) {
+    if (mode == 0)
+      static_cast<double*>(out)[k] = div_pos(static_cast<const double*>(x)[k], d);
+    else
+      static_cast<float*>(out)[k] =
+          div_pos(static_cast<const float*>(x)[k], static_cast<float>(d));
   }
 }
 
-extern "C" int host_cavity_step(int mode, int lean, const void* const* p, void* const* o,
-                                double u, double tau, const int* geom) {
-  const Geom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
-  if (mode == 0) run_step<double, double>(lean, p, o, u, tau, g);
-  else if (mode == 1) run_step<float, float>(lean, p, o, u, tau, g);
-  else run_step<__nv_bfloat16, float>(lean, p, o, u, tau, g);
-  return 0;
-}
-
 extern "C" int host_cavity_window(int mode, const void* f, void* fo, int t0, int K,
-                                  double u_lid, double sigma, double tau, const int* geom) {
+                                  double u_lid, double sigma, double tau, const int* geom,
+                                  int route, int blocks) {
   const Geom g{geom[0], geom[1], 0, 0, geom[2], geom[3]};
-  if (mode == 0)
-    run_window<double, double>(f, fo, g, make_window<double>(t0, K, u_lid, sigma, tau));
-  else if (mode == 1)
-    run_window<float, float>(f, fo, g, make_window<float>(t0, K, u_lid, sigma, tau));
-  else
-    run_window<__nv_bfloat16, float>(f, fo, g, make_window<float>(t0, K, u_lid, sigma, tau));
-  return 0;
+  return BY_MODE(window_of, f, fo, g, t0, K, u_lid, sigma, tau, route, blocks);
 }
 """
+
+# the card's build is W = 128 (64 in f64) sites a strip and resident blocks
+# of 1,024 threads holding 4 sites each (f64: 512 holding 2); the host's
+# strips of 8 sites and blocks of 8 threads holding 4 walk the same code on
+# small grids, a chunk a row
+_CAVITY_FLAGS = ["-DCAVITY_RUN=8", "-DCAVITY_RES_THREADS=8",
+                 "-DCAVITY_HOLD=4"]
+
+
+def _host_cavity(tmp_path_factory, name, csrc=CSRC, flags=()):
+    so = _build_host(tmp_path_factory, name, _CAVITY_HOST, _STUBS, csrc,
+                     [*_CAVITY_FLAGS, *flags])
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    so.host_cavity_step.argtypes = [ci, ci, vp, vp, cd, cd, vp, ci]
+    so.host_cavity_window.argtypes = [ci, vp, vp, ci, ci, cd, cd, cd, vp,
+                                      ci, ci]
+    so.host_cavity_window.restype = ci
+    so.host_div_pos.argtypes = [ci, vp, cd, vp, ci]
+    so.host_div_pos.restype = None
+    return so
 
 
 @pytest.fixture(scope="module")
 def host_cavity(tmp_path_factory):
-    so = _build_host(tmp_path_factory, "host_cavity", _CAVITY_HOST, _STUBS)
-    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    so.host_cavity_step.argtypes = [ci, ci, vp, vp, cd, cd, vp]
-    so.host_cavity_window.argtypes = [ci, vp, vp, ci, ci, cd, cd, cd, vp]
-    return so
+    return _host_cavity(tmp_path_factory, "host_cavity")
 
 
 def _cavity_warm(cfg, seed):
@@ -676,80 +720,275 @@ def _cavity_warm(cfg, seed):
                        ux=perturb(st.ux, 1e-4), uy=perturb(st.uy, 1e-4))
 
 
+_CAVITY_DTYPES = [(torch.float64, "native"), (torch.float32, "native"),
+                  (torch.float32, "bf16")]
+
+
+def _host_step(so, st, cfg, u, lean, rows=None, resident=7):
+    """(got, want): the host build's step and the plain version's, on the
+    whole grid (rows None: the single-device kernels) or on the shard
+    `rows` with 3-deep strips (the halo kernels); the plan made for
+    `resident` blocks."""
+    tau, dtype = cfg.tau, cfg.dtype
+    mode = fused_cavity._MODES[(st.f.dtype, dtype)]
+    macros = None if lean else (st.rho, st.ux, st.uy)
+    if rows is None:
+        args = (st.f,) + (() if lean else macros)
+        strips, walls = (None,) * 4, (0, st.f.shape[1] - 1)
+        want = (fused_cavity.collide_stream_cavity_lean_reference(
+            st.f, u, tau=tau) if lean else
+                fused_cavity.collide_stream_cavity_reference(
+                    st.f, *macros, u, tau=tau))
+    else:
+        args, (bottom, top) = fused_cavity.halo_inputs(st.f, macros, rows,
+                                                       depth=3)
+        strips = (args[1], None, args[2], None) if lean else args[4:]
+        NYl = rows.stop - rows.start
+        walls = (0 if bottom else -1, NYl - 1 if top else -1)
+        want = (fused_cavity.collide_stream_cavity_halo_lean_reference
+                if lean else
+                fused_cavity.collide_stream_cavity_halo_reference)(
+            *args, u, bottom, top, tau=tau)
+        args = args[:1] if lean else args[:4]
+    want = [want] if lean else list(want)
+    got = [torch.empty_like(w) for w in want]
+    ins = (ctypes.c_void_p * 8)(
+        *(None if t is None else t.data_ptr()
+          for t in (args + (None,) * 3)[:4] + tuple(strips)))
+    outs = (ctypes.c_void_p * 4)(
+        *[t.data_ptr() for t in got] + [None] * (4 - len(got)))
+    depth = [0 if s is None else s.shape[1] for s in strips[::2]]
+    geom = (ctypes.c_int * 6)(args[0].shape[1], args[0].shape[2], *depth,
+                              *walls)
+    so.host_cavity_step(mode, int(lean), ins, outs, u, tau, geom, resident)
+    return got, want
+
+
+def _host_window(so, block, wall_rows, cfg, k, route, blocks, step0=4):
+    """(got, want): the host build's window of k steps on block from step0
+    by `route` (1: resident on `blocks` bands; 0: streaming, the plan made
+    for `blocks` blocks) and the gated plain version's; got is None if the
+    resident route refuses the grid."""
+    kw = dict(tau=cfg.tau, k_steps=k, u_lid=cfg.u_lid, sigma=cfg.sigma)
+    want = fused_cavity.collide_stream_cavity_multistep_gated_reference(
+        block, step0, wall_rows, **kw)
+    got = torch.empty_like(want)
+    mode = fused_cavity._MODES[(block.dtype, cfg.dtype)]
+    geom = (ctypes.c_int * 4)(*block.shape[1:], *wall_rows)
+    refused = so.host_cavity_window(mode, block.data_ptr(), got.data_ptr(),
+                                    step0, k, cfg.u_lid, cfg.sigma, cfg.tau,
+                                    geom, route, blocks)
+    return (None if refused else got), want
+
+
+def _differ(tag, got, want):
+    return [f"{tag}: {int((a != b).sum())} of {a.numel()} elements differ"
+            for a, b in zip(got, want) if not torch.equal(a, b)]
+
+
 # rows of a 45x20 grid (NY x NX): ragged shards that hold the bottom wall,
 # neither wall, and the lid, and the whole grid (the single-device kernels)
 _CAVITY_CUTS = {"bottom": slice(0, 13), "interior": slice(13, 30),
                 "lid": slice(30, 45), "whole": slice(0, 45)}
 
 
-@pytest.mark.parametrize("where", list(_CAVITY_CUTS))
-def test_cavity_site_code_matches_plain_versions_bitwise(host_cavity, where):
-    """csrc/cavity_site.cuh against the plain versions of the stored and
-    lean steps (the halo kernels on a shard with 3-deep strips; the single-
-    device kernels on the whole grid) and of the K = 3 window from step 4,
-    inside the lid ramp (the gated window on the shard extended by 3 rows,
-    the single-device one on the whole grid), in f64, f32 and bf16
-    storage, bit for bit."""
+def _cavity_cut_mismatches(so, where, dtypes=_CAVITY_DTYPES):
+    """The stored and lean steps and the K = 3 window (both routes) of the
+    cut `where`, against the plain versions: the list of differences."""
     rows = _CAVITY_CUTS[where]
     whole = where == "whole"
-    for dtype, storage in [(torch.float64, "native"),
-                           (torch.float32, "native"),
-                           (torch.float32, "bf16")]:
+    bad = []
+    for dtype, storage in dtypes:
         cfg = CavityConfig(NX=20, NY=45, dtype=dtype, storage=storage)
         st = _cavity_warm(cfg, rows.start * 100 + rows.stop)
         u = cavity._lid_speed(cfg, 15)
-        tau, mode = cfg.tau, fused_cavity._MODES[(st.f.dtype, dtype)]
-        NYl = rows.stop - rows.start
         tag = f"{where} {storage} {dtype}"
         for lean in (False, True):
-            macros = None if lean else (st.rho, st.ux, st.uy)
-            if whole:
-                args = (st.f,) + (() if lean else macros)
-                strips, walls = (None,) * 4, (0, NYl - 1)
-                want = (fused_cavity.collide_stream_cavity_lean_reference(
-                    st.f, u, tau=tau) if lean else
-                        fused_cavity.collide_stream_cavity_reference(
-                            st.f, *macros, u, tau=tau))
-            else:
-                args, (bottom, top) = fused_cavity.halo_inputs(
-                    st.f, macros, rows, depth=3)
-                strips = ((args[1], None, args[2], None) if lean
-                          else args[4:])
-                walls = (0 if bottom else -1, NYl - 1 if top else -1)
-                want = (fused_cavity.collide_stream_cavity_halo_lean_reference
-                        if lean else
-                        fused_cavity.collide_stream_cavity_halo_reference)(
-                    *args, u, bottom, top, tau=tau)
-                args = args[:1] if lean else args[:4]
-            want = [want] if lean else list(want)
-            got = [torch.empty_like(w) for w in want]
-            ins = (ctypes.c_void_p * 8)(
-                *(None if t is None else t.data_ptr()
-                  for t in (args + (None,) * 3)[:4] + tuple(strips)))
-            outs = (ctypes.c_void_p * 4)(
-                *[t.data_ptr() for t in got] + [None] * (4 - len(got)))
-            depth = [0 if s is None else s.shape[1] for s in strips[::2]]
-            geom = (ctypes.c_int * 6)(NYl, 20, *depth, *walls)
-            host_cavity.host_cavity_step(mode, int(lean), ins, outs, u, tau,
-                                         geom)
-            for name, a, b in zip(("f", "rho", "ux", "uy"), got, want):
-                assert torch.equal(a, b), (
-                    f"{tag} {'lean' if lean else 'stored'} {name}: "
-                    f"{int((a != b).sum())} of {a.numel()} elements differ")
+            got, want = _host_step(so, st, cfg, u, lean,
+                                   None if whole else rows)
+            bad += _differ(f"{tag} {'lean' if lean else 'stored'}", got,
+                           want)
         k = 3
         block, wall_rows = ((st.f, (0, 44)) if whole else
                             fused_cavity.window_inputs(st.f, rows, k))
-        kw = dict(tau=tau, k_steps=k, u_lid=cfg.u_lid, sigma=cfg.sigma)
-        want = fused_cavity.collide_stream_cavity_multistep_gated_reference(
-            block, 4, wall_rows, **kw)
-        got = torch.empty_like(want)
-        geom = (ctypes.c_int * 4)(block.shape[1], 20, *wall_rows)
-        host_cavity.host_cavity_window(mode, block.data_ptr(),
-                                       got.data_ptr(), 4, k, cfg.u_lid,
-                                       cfg.sigma, tau, geom)
-        assert torch.equal(got, want), (
-            f"{tag} window: {int((got != want).sum())} of {got.numel()} "
-            f"elements differ")
+        for route, blocks in ((0, 7), (1, 4)):
+            got, want = _host_window(so, block, wall_rows, cfg, k, route,
+                                     blocks)
+            assert got is not None, f"{tag}: the resident route refused"
+            bad += _differ(f"{tag} window route {route}", [got], [want])
+    return bad
+
+
+@pytest.mark.parametrize("where", list(_CAVITY_CUTS))
+def test_cavity_site_code_matches_plain_versions_bitwise(host_cavity, where):
+    """csrc/cavity_tile.cuh (with cavity_site.cuh) against the plain
+    versions of the stored and lean steps (the halo kernels on a shard with
+    3-deep strips; the single-device kernels on the whole grid), on strips
+    of 8 sites and ragged spans, and of the K = 3 window from step 4,
+    inside the lid ramp, by both routes (the gated window on the shard
+    extended by 3 rows, the single-device one on the whole grid; resident
+    on 4 ragged bands of one-row chunks), in f64, f32 and bf16 storage, bit
+    for bit."""
+    assert _cavity_cut_mismatches(host_cavity, where) == []
+
+
+def _cavity_seeded(ny, nx, dtype, storage, seed):
+    """A random cavity state (f a ~5% seeded perturbation of the rest
+    state, the stored macros its own, ~1e-3 perturbed; numpy float64), or
+    the rest state itself (seed None: exact zeros in every velocity and
+    f - feq)."""
+    cfg = CavityConfig(NX=nx, NY=ny, dtype=dtype, storage=storage)
+    st = cavity.init_state(cfg, "cpu")
+    if seed is None:
+        return cfg, st
+    rng = np.random.default_rng(seed)
+    full = cavity.decode_f(cfg, st.f).double().numpy()
+    full = full * (1 + 5e-2 * rng.standard_normal(full.shape))
+    ff = torch.from_numpy(full).to(dtype)
+    mac = [m.double().numpy() for m in cavity.macros_of(
+        cfg, cavity.encode_f(cfg, ff))]
+    rho, ux, uy = (torch.from_numpy(m * (1 + 1e-3 * rng.standard_normal(
+        m.shape))).to(dtype) for m in mac)
+    return cfg, st._replace(f=cavity.encode_f(cfg, ff).contiguous(), rho=rho,
+                            ux=ux, uy=uy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_div_pos_is_the_ieee_quotient(host_cavity, dtype):
+    """div_pos (the quotient behind a zero test) against the IEEE
+    quotient, bit for bit: zeros of both signs, subnormal, tiny and
+    ordinary dividends, by the divisors a cavity divides by (densities near
+    1, tau in [0.5, 2]) and by small and large ones."""
+    info = torch.finfo(dtype)
+    rng = np.random.default_rng(7)
+    lo, hi = np.log2(float(info.smallest_normal)) - 30, 8.0
+    mag = np.exp2(rng.uniform(lo, hi, 20000))
+    x = torch.tensor(np.concatenate([mag, -mag, [0.0, -0.0]]), dtype=dtype)
+    x = torch.cat([x, torch.tensor([float(info.tiny) * k for k in
+                                    (0.5, 1, 2, 3.7)], dtype=dtype),
+                   torch.tensor([2.0 ** e for e in (-32, -33, -256, -257,
+                                                    -62, -126, -127, -149,
+                                                    -422, -1022, -1074)],
+                                dtype=dtype)])
+    mode = 0 if dtype == torch.float64 else 1
+    bad = []
+    for d in (1.0, 0.99999994, 1.0000001, 0.5, 0.887, 1.3, 2.0, 1e-10,
+              3.0e5, 7.0e30):
+        want = x / torch.tensor(d, dtype=dtype)
+        got = torch.empty_like(x)
+        host_cavity.host_div_pos(mode, x.data_ptr(), d, got.data_ptr(),
+                                 x.numel())
+        same = got.view(torch.int64 if mode == 0 else torch.int32) == \
+            want.view(torch.int64 if mode == 0 else torch.int32)
+        if not bool(same.all()):
+            bad.append(f"d={d}: {int((~same).sum())} quotients differ, "
+                       f"e.g. x={float(x[~same][0])!r}")
+    assert bad == []
+
+
+# the step program's run edges, with strips of W = 8 sites: (NY, NX, plan's
+# blocks): NX = 1, 3, W - 1, W + 1 and W + 2 (the card's 127, 129, 130), a
+# ragged strip, NY = 3, shorter than the span the plan asks for (cut to
+# the grid's rows), and ragged last spans
+_CAVITY_RUN_EDGES = [(11, 1, 5), (11, 3, 3), (13, 7, 4), (9, 9, 5),
+                     (10, 10, 3), (3, 12, 1), (17, 21, 5)]
+
+
+def test_cavity_tile_run_edges_bitwise(host_cavity):
+    """The step program at its run edges, stored and lean, single-device
+    and on a walled and a wall-free shard, on a seeded state and on the
+    rest state (exact zero dividends), in f64, f32 and bf16 storage, bit
+    for bit."""
+    bad = []
+    for ny, nx, resident in _CAVITY_RUN_EDGES:
+        for dtype, storage in _CAVITY_DTYPES:
+            for seed in (ny * 100 + nx, None):
+                cfg, st = _cavity_seeded(ny, nx, dtype, storage, seed)
+                u = cavity._lid_speed(cfg, 15)
+                for rows in (None, slice(0, ny - 1), slice(1, ny - 1)):
+                    for lean in (False, True):
+                        got, want = _host_step(host_cavity, st, cfg, u, lean,
+                                               rows, resident)
+                        bad += _differ(
+                            f"{ny}x{nx} {storage} {dtype} seed {seed} rows "
+                            f"{rows} lean {lean}", got, want)
+    assert bad == []
+
+
+# the window's routes: (NY, NX, wall rows (None: the grid's edges), K,
+# resident bands, capped by the plan at 2 NY / 3); 1-row bands, one band
+# that is its own neighbour, ragged bands, walls inside the block and none
+# (periodic in y), K = 1 (the streaming route alone), 2 and 17
+_CAVITY_ROUTES = [(12, 6, None, 2, 9), (12, 6, None, 17, 1),
+                  (14, 5, (3, 10), 2, 4), (14, 5, (-1, -1), 17, 5),
+                  (15, 9, (2, -1), 2, 11), (13, 8, (-1, 7), 17, 3),
+                  (9, 3, None, 1, 2)]
+
+
+def _cavity_route_mismatches(so, dtypes=_CAVITY_DTYPES, cases=_CAVITY_ROUTES):
+    bad = []
+    for ny, nx, walls, k, blocks in cases:
+        for dtype, storage in dtypes:
+            cfg, st = _cavity_seeded(ny, nx, dtype, storage, ny * nx + k)
+            wall_rows = (0, ny - 1) if walls is None else walls
+            for route in (0, 1):
+                got, want = _host_window(so, st.f, wall_rows, cfg, k, route,
+                                         blocks)
+                tag = f"{ny}x{nx} walls {wall_rows} K={k} {storage} {dtype}"
+                if got is None:
+                    assert route == 1 and k == 1, f"{tag}: resident refused"
+                    continue
+                bad += _differ(f"{tag} route {route} on {blocks}", [got],
+                               [want])
+    return bad
+
+
+def test_cavity_window_routes_bitwise(host_cavity):
+    """Both window routes on periodic and walled blocks, the resident one on
+    1-row, ragged and single bands, against the gated plain version, bit
+    for bit; K = 1 is the streaming route's alone."""
+    assert _cavity_route_mismatches(host_cavity) == []
+
+
+# one-line changes of the cavity block programs, each of which the bitwise
+# holds must catch: (what it breaks, file, the line as it is, the line
+# changed)
+_CAVITY_MUTATIONS = {
+    "reflected slot": ("cavity_site.cuh",
+                       "    out[i] = blocked ? post(opp_of(i), 0, 0) : "
+                       "post(i, -cy, -cx);",
+                       "    out[i] = blocked ? post(i, 0, 0) : "
+                       "post(i, -cy, -cx);"),
+    "ring's row lag": ("cavity_tile.cuh",
+                       "    const T* rows[3] = {ring + ((y - 1) & 3) * SLOT,"
+                       " ring + (y & 3) * SLOT,",
+                       "    const T* rows[3] = {ring + ((y - 2) & 3) * SLOT,"
+                       " ring + (y & 3) * SLOT,"),
+    "published edge row": ("cavity_tile.cuh",
+                           "      ex[4 * NX + x] = post[5];",
+                           "      ex[4 * NX + x] = post[6];"),
+    "lid's row": ("cavity_site.cuh",
+                  "bottom = y == g.b_row, top = y == g.l_row;",
+                  "bottom = y == g.b_row, top = y == g.l_row - 1;"),
+}
+
+
+@pytest.mark.parametrize("what", list(_CAVITY_MUTATIONS))
+def test_cavity_tile_mutations_fail(tmp_path_factory, what):
+    fname, before, after = _CAVITY_MUTATIONS[what]
+    csrc = tmp_path_factory.mktemp("csrc_" + what.replace(" ", "_")
+                                   .replace("'", ""))
+    for header in CSRC.glob("*.cuh"):
+        text = header.read_text()
+        if header.name == fname:
+            assert text.count(before) == 1, f"{what}: line not found"
+            text = text.replace(before, after)
+        (csrc / header.name).write_text(text)
+    so = _host_cavity(tmp_path_factory, "cavity_mutant", csrc, ["-DF64_ONLY"])
+    f64 = _CAVITY_DTYPES[:1]
+    assert (_cavity_cut_mismatches(so, "whole", f64)
+            or _cavity_route_mismatches(so, f64, _CAVITY_ROUTES[:3])), (
+        f"the '{what}' mutation passed the bitwise hold")
 
 
 _FFT_HOST = r"""
