@@ -207,6 +207,38 @@ phase fails:
      bounce-back window, the bound (K times the collide stage's issue floor)
      and the plain version; the sharded rollout over a world of one beside
      the single-device window rollout, ms/step and MLUPS.
+  14. checkpoints, resume, the watchdog and --profile (io/checkpoint,
+     utils/watchdog; every resumed run bitwise equal to the straight one):
+  14a. the golden f64 CLI to step 120 with --checkpoint-every 40, resumed
+     to 200: final_state.npz bitwise equal to phase 4's, its 80 probe rows
+     equal to phase 4's rows 120-199 (and so within the C++ fixture's
+     gate), exactly 80 collide_stream launches; --multistep 8 with
+     --checkpoint-every 48, resumed at step 96, against phase 7b: 13
+     window launches;
+  14b. the 3-D CLI (64^3 f32 + delta) to 30, resumed to 50, against phase
+     8b: 20 launches;
+  14c. the cavity CLI at 129^2, stored f32 and bf16 and --multistep 100
+     f32: 6,000 steps, resumed to 10,000, against the straight runs; the
+     bf16 checkpoint resumed into an f64 native run (reconcile_cavity_state
+     on the card bitwise equal to the CPU's; Ghia's gates);
+  14d. the plasma CLI at 1024^2 bf16 + delta: 5 steps, resumed to 10;
+  14e. 512^2 f32 with fft_engine="pallas" through make_rollout: the saved
+     phi equals reconstruct_phi of the state, and the resume is bitwise;
+  14f. convert_neutral_layout and the float64 -> bfloat16 cast on the card
+     bitwise equal to the CPU's (and the cast to a numpy bit-level
+     reference);
+  14g. the plasma CLI with --shard 1 --multistep 8 on a one-rank NCCL
+     group, 512^2 NONE f32, 24 steps: rank 0's final_state.npz equal to the
+     single-device run's, and a --shard 1 resume at step 16 equal to both;
+  14h. the watchdog: a NaN set in g of a 2048^2 f32 state raises
+     BlowupError at the first check after it; one check's ms beside a
+     step's;
+  14i. the golden CLI with --profile for 10 steps: the Chrome trace names
+     the collide+stream kernel 10 times;
+  14j. scripts/measure_drift_torch.py on the card: its drift table through
+     the fused kernel, the delta column's rho_n, ux_n, uy_n and T_n within
+     1e-3 of scale, the classic column's T_n at or past 1;
+  14k. a checkpoint's write and load ms at 1024^2 bf16.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -252,6 +284,11 @@ SWEEP_FLOP = {("gs", False): 8, ("gs", True): 11, ("nps", False): 14}
 NO_HALO = {"collide_stream_halo": 0, "collide_stream_halo2d": 0}
 # and the gated window's (the sharded windows' kernel)
 NO_GATED = {"collide_stream_multistep_gated": 0}
+
+
+# the straight CLI runs of phases 4, 7b and 8b (their summaries), which
+# phase 14 holds its resumed runs against; phase 14 makes the ones missing
+STRAIGHT = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -609,6 +646,7 @@ def phase_golden():
                                "fused", "--device", "cuda",
                                "--out", os.path.join(OUT, "golden")])
     launches = fused_step.LAUNCHES
+    STRAIGHT["golden"] = summary
     require(launches == 200, f"golden run launched the kernel {launches} "
             f"times, want 200")
     require(summary["finite"], "golden run state is not finite")
@@ -1416,6 +1454,7 @@ def phase_multistep_golden():
     summary = run_plasma.main(["--preset", "golden", "--f64", "--multistep",
                                "8", "--device", "cuda", "--out",
                                os.path.join(OUT, "golden_multistep")])
+    STRAIGHT["golden_multistep"] = summary
     launches = summary["launches"]
     want = {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
             "collide_stream_multistep": 25, "fft_solve": 0, **NO_HALO,
@@ -1801,6 +1840,7 @@ def phase_3d_cli():
     _reset_launches()
     _reset_cavity_launches()
     summary = run_plasma3d.main(["--out", os.path.join(OUT, "plasma3d")])
+    STRAIGHT["plasma3d"] = summary
     launches = fused_step3d.LAUNCHES
     require(summary["launches"]["collide_stream3d"] == launches == 50,
             f"3-D CLI launched collide_stream3d {launches} times, want 50")
@@ -3619,13 +3659,444 @@ def phase_gated_real_size():
         dist.destroy_process_group()
     return out
 
+# phase 14: checkpoints, resume, the watchdog, --profile and measure_drift.
+# 14a's cadences: (label, flags, steps to the checkpoint, cadence, window
+# launches of the resumed run)
+CKPT_GOLDEN = [("per step", [], 120, 40, 80),
+               ("multistep 8", ["--multistep", "8"], 96, 48, 13)]
+# 14c's cavity runs at 129^2: (label, flags, kernel, launches from 6,000)
+CKPT_CAVITY = [("stored f32", [], "collide_stream_cavity", 4000),
+               ("stored bf16", ["--storage", "bf16"],
+                "collide_stream_cavity", 4000),
+               ("multistep 100 f32", ["--multistep", "100"],
+                "collide_stream_cavity_multistep", 40)]
+
+
+def _same_state(where, got, want, fields=None):
+    """Every tensor field of two states bitwise equal, and the steps."""
+    import torch
+    for k in fields or got._fields:
+        g, w = getattr(got, k), getattr(want, k)
+        if k == "step":
+            require(int(g) == int(w), f"{where}: step {g} vs {w}")
+            continue
+        g, w = g.to(w.device), w
+        require(g.shape == w.shape and g.dtype == w.dtype
+                and torch.equal(_bits(g), _bits(w)),
+                f"{where} {k}: not bitwise equal")
+
+
+def _straight(key, run):
+    """Phase 4's, 7b's or 8b's straight run, or this call's own."""
+    if key not in STRAIGHT:
+        STRAIGHT[key] = run()
+    return STRAIGHT[key]
+
+
+def _bf16_bits_reference(x):
+    """float64 -> bfloat16 bits as numpy rounds it (round to nearest even
+    to float32, then to bfloat16), from the float32 bits: finite inputs."""
+    b = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def phase_checkpoint_golden():
+    """Phase 14a: the golden CLI checkpointed and resumed, per step and
+    with --multistep 8."""
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.io import checkpoint
+    from lbm_tpu_torch.models.plasma import PlasmaState
+
+    print("== phase 14a: the golden CLI, checkpoint and resume")
+    ref = _parse_probe_fixture(FIXTURE)
+    base = ["--preset", "golden", "--f64", "--device", "cuda"]
+    for label, flags, at, every, want in CKPT_GOLDEN:
+        key = "golden_multistep" if flags else "golden"
+        out = os.path.join(OUT, key)
+        straight = _straight(key, lambda: run_plasma.main(
+            base + flags + ["--out", out]))
+        ck_out = os.path.join(OUT, f"ckpt_{key}")
+        t0 = time.perf_counter()
+        run_plasma.main(base + flags + ["--steps", str(at),
+                                        "--checkpoint-every", str(every),
+                                        "--out", ck_out])
+        first_s = time.perf_counter() - t0
+        names = sorted(n for n in os.listdir(ck_out) if n.startswith("ckpt"))
+        require(names == [f"ckpt_{s:06d}.npz" for s in
+                          range(every, at + 1, every)],
+                f"{label}: checkpoints {names}")
+        _reset_launches()
+        resumed = run_plasma.main(base + flags + [
+            "--resume", os.path.join(ck_out, f"ckpt_{at:06d}.npz"),
+            "--out", ck_out + "_resumed"])
+        kernel = ("collide_stream_multistep" if flags else "collide_stream")
+        counts = resumed["launches"]
+        require(counts == {k: want if k == kernel else 0 for k in counts},
+                f"{label}: resumed launches {counts}, want {want} of "
+                f"{kernel}")
+        _same_state(f"{label}: final_state.npz",
+                    checkpoint.load(os.path.join(ck_out + "_resumed",
+                                                 "final_state.npz"), "cuda"),
+                    checkpoint.load(os.path.join(out, "final_state.npz"),
+                                    "cuda"), PlasmaState._fields)
+        _same_state(f"{label}: the end state", resumed["state"],
+                    straight["state"])
+        stride = 8 if flags else 1
+        rows = at // stride
+        worst = 0.0
+        for k, series in straight["probes"].items():
+            got = resumed["probes"][k]
+            require(np.array_equal(got, series[rows:]),
+                    f"{label}: probe series {k} not bitwise equal to the "
+                    f"straight run's rows {rows}-")
+            # a window row holds the macros before it and the E after it
+            fix = ref[k][at + (stride - 1 if k in PROBE_E else 0)::stride]
+            scale = np.abs(ref[k]).max()
+            allowed = 1e-5 * np.abs(fix) + 1e-5 * scale
+            ratio = float((np.abs(got - fix) / np.where(
+                allowed == 0, 1e-300, allowed)).max())
+            require(ratio <= 1.0, f"{label}: resumed probe series {k}: "
+                    f"{ratio:.3f} x the fixture's gate")
+            worst = max(worst, float(np.abs(got - fix).max() / scale))
+        print(f"{label:>12}: to {at} with --checkpoint-every {every} "
+              f"({first_s:.2f} s, {len(names)} files), resumed to 200: "
+              f"final_state.npz and the end state bitwise equal to the "
+              f"straight run's, {len(got)} probe rows bitwise equal "
+              f"(fixture {worst:.3e} of scale); {want} launches of "
+              f"{kernel}")
+
+
+def phase_checkpoint_3d_cavity():
+    """Phases 14b and 14c: the 3-D and cavity CLIs checkpointed and
+    resumed; a bf16 cavity checkpoint resumed into an f64 run."""
+    import torch
+    from lbm_tpu_torch import run_cavity, run_plasma3d
+    from lbm_tpu_torch.config import CavityConfig
+    from lbm_tpu_torch.io import checkpoint
+    from lbm_tpu_torch.kernels import fused_cavity
+
+    print("== phase 14b: the 3-D CLI (64^3 f32 + delta), checkpoint and "
+          "resume")
+    out = os.path.join(OUT, "plasma3d")
+    straight = _straight("plasma3d", lambda: run_plasma3d.main(
+        ["--out", out]))
+    ck_out = os.path.join(OUT, "ckpt_plasma3d")
+    run_plasma3d.main(["--steps", "30", "--checkpoint-every", "30",
+                       "--slice-every", "0", "--out", ck_out])
+    _reset_launches()
+    resumed = run_plasma3d.main([
+        "--resume", os.path.join(ck_out, "ckpt_000030.npz"),
+        "--slice-every", "0", "--out", ck_out + "_resumed"])
+    require(resumed["launches"]["collide_stream3d"] == 20
+            and sum(resumed["launches"].values()) == 20,
+            f"3-D resumed launches {resumed['launches']}")
+    _same_state("3-D final_state.npz",
+                checkpoint.load3d(os.path.join(ck_out + "_resumed",
+                                               "final_state.npz"), "cuda"),
+                checkpoint.load3d(os.path.join(out, "final_state.npz"),
+                                  "cuda"))
+    _same_state("3-D end state", resumed["state"], straight["state"])
+    print("to 30, resumed to 50: final_state.npz bitwise equal to phase "
+          "8b's; 20 launches of collide_stream3d")
+
+    print("== phase 14c: the cavity CLI at 129^2, checkpoint and resume")
+    base = ["--nx", "129", "--re", "100", "--u-lid", "0.1", "--device",
+            "cuda"]
+    for label, flags, kernel, want in CKPT_CAVITY:
+        tag = label.replace(" ", "_")
+        a = os.path.join(OUT, f"ckpt_cavity_{tag}")
+        straight = run_cavity.main(base + flags + [
+            "--steps", "10000", "--checkpoint-every", "10000", "--out", a])
+        run_cavity.main(base + flags + ["--steps", "6000",
+                                        "--checkpoint-every", "6000",
+                                        "--out", a + "_b"])
+        _reset_cavity_launches()
+        resumed = run_cavity.main(base + flags + [
+            "--steps", "10000", "--checkpoint-every", "6000", "--resume",
+            os.path.join(a + "_b", "ckpt_0006000.npz"), "--out", a + "_c"])
+        counts = dict(fused_cavity.LAUNCHES)
+        require(counts == {k: want if k == kernel else 0 for k in counts},
+                f"{label}: resumed launches {counts}")
+        _same_state(f"{label}: final_state.npz",
+                    checkpoint.load_cavity(os.path.join(
+                        a + "_c", "final_state.npz"), "cuda"),
+                    checkpoint.load_cavity(os.path.join(
+                        a, "final_state.npz"), "cuda"))
+        _same_state(f"{label}: end state", resumed["state"],
+                    straight["state"])
+        g = resumed["ghia"]
+        print(f"{label:>17}: 6,000 steps, resumed to 10,000: bitwise equal "
+              f"to the straight run; {want} launches of {kernel}; Ghia u max "
+              f"{g['u_max']:.4f}")
+    # the bf16 checkpoint into an f64 native run: reconcile on the card
+    path = os.path.join(OUT, "ckpt_cavity_stored_bf16_b", "ckpt_0006000.npz")
+    cfg64 = CavityConfig(NX=129, NY=129, dtype=torch.float64)
+    on_card = checkpoint.reconcile_cavity_state(
+        checkpoint.load_cavity(path, "cuda"), path, cfg64)
+    on_cpu = checkpoint.reconcile_cavity_state(
+        checkpoint.load_cavity(path, "cpu"), path, cfg64)
+    _same_state("bf16 -> f64 reconcile, card vs CPU", on_card, on_cpu)
+    s = run_cavity.main(base + ["--f64", "--steps", "10000", "--resume", path,
+                                "--out", os.path.join(OUT, "ckpt_cavity_f64")])
+    require(s["finite"] and s["state"].f.dtype == torch.float64
+            and s["start_step"] == 6000, "bf16 -> f64 resume")
+    g = s["ghia"]
+    print(f"bf16 checkpoint at 6,000 into an f64 native run: reconcile on "
+          f"the card bitwise equal to the CPU's; to 10,000 in f64, Ghia u "
+          f"max {g['u_max']:.4f}, v max {g['v_max']:.4f}")
+
+
+def phase_checkpoint_real_size():
+    """Phases 14d-14h and 14k: bf16 resume at 1024^2, the spectral
+    engine's phi, the layout conversion and the cast on the card, the
+    --shard 1 CLI, the watchdog, and a checkpoint's write and load times."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.config import PlasmaConfig, PoissonSolver
+    from lbm_tpu_torch.io import checkpoint
+    from lbm_tpu_torch.kernels import fft_tpu
+    from lbm_tpu_torch.models import plasma
+    from lbm_tpu_torch.utils.watchdog import (BlowupError, Watchdog,
+                                              finite_reduction)
+
+    dev = torch.device("cuda")
+    print("== phase 14d: the plasma CLI at 1024^2 bf16 + delta, 5 steps "
+          "resumed to 10")
+    base = ["--preset", "1024", "--storage", "bf16", "--device", "cuda"]
+    a = os.path.join(OUT, "ckpt_1024")
+    straight = run_plasma.main(base + ["--steps", "10", "--out", a])
+    run_plasma.main(base + ["--steps", "5", "--checkpoint-every", "5",
+                            "--out", a + "_b"])
+    _reset_launches()
+    resumed = run_plasma.main(base + [
+        "--steps", "10", "--resume", os.path.join(a + "_b", "ckpt_000005.npz"),
+        "--out", a + "_c"])
+    require(resumed["launches"]["collide_stream"] == 5,
+            f"1024^2 resumed launches {resumed['launches']}")
+    _same_state("1024^2 bf16 final_state.npz",
+                checkpoint.load(os.path.join(a + "_c", "final_state.npz"),
+                                dev),
+                checkpoint.load(os.path.join(a, "final_state.npz"), dev))
+    _same_state("1024^2 bf16 end state", resumed["state"], straight["state"])
+    print("bitwise equal to the straight run; 5 launches of collide_stream")
+
+    print("== phase 14e: 512^2 f32, fft_engine='pallas', make_rollout and "
+          "the checkpoint module")
+    cfg = dataclasses.replace(PlasmaConfig(), NX=512, NY=512,
+                              dtype=torch.float32, neutral_delta=True,
+                              backend="fused", fft_engine="pallas")
+    want = plasma.make_rollout(cfg, 10)(plasma.init_state(cfg, dev))
+    mid = plasma.make_rollout(cfg, 5)(plasma.init_state(cfg, dev))
+    path = os.path.join(OUT, "ckpt_pallas", "ckpt_000005.npz")
+    checkpoint.save(path, checkpoint.with_fresh_phi(cfg, mid),
+                    neutral_delta=True, storage="native")
+    back = checkpoint.reconcile_resumed_state(
+        checkpoint.load(path, dev, dtype=torch.float32), path, cfg)
+    phi = plasma.reconstruct_phi(cfg, mid)
+    require(torch.equal(_bits(back.phi), _bits(phi))
+            and not torch.equal(phi, mid.phi),
+            "the saved phi is not reconstruct_phi of the state")
+    fft_tpu.LAUNCHES = 0
+    got = plasma.make_rollout(cfg, 5)(back)
+    require(fft_tpu.LAUNCHES == 5, f"spectral solve launches "
+            f"{fft_tpu.LAUNCHES}")
+    _same_state("pallas-engine resume", got, want,
+                ("f", "g", "Ex", "Ey", "step"))
+    print(f"saved phi = reconstruct_phi (max|phi| "
+          f"{float(phi.abs().max()):.3e}); resumed 5 steps bitwise equal to "
+          f"the straight 10 (f, g, E); 5 spectral-solve launches")
+
+    print("== phase 14f: convert_neutral_layout and the f64 -> bf16 cast "
+          "on the card")
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal(1 << 20) * 2.0 ** rng.integers(-30, 34, 1 << 20)
+    # just past a bf16 rounding tie, by less than a float32 ulp: rounding
+    # straight to bf16 and rounding through float32 part there
+    v = _bf16_bits_reference(x).astype(np.uint32) << 16
+    v = v.view(np.float32).astype(np.float64)
+    tie = (v + np.sign(v) * np.ldexp(1.0, np.frexp(v)[1] - 9)) * (
+        1 + 2.0 ** -30)
+    x = np.concatenate([x, tie])
+    ref = _bf16_bits_reference(x)
+    xt = torch.from_numpy(x)
+    card = checkpoint.cast(xt.to(dev), torch.bfloat16).cpu()
+    host = checkpoint.cast(xt, torch.bfloat16)
+    require(np.array_equal(_bits(card).numpy().view(np.uint16), ref)
+            and torch.equal(_bits(card), _bits(host)),
+            "the f64 -> bf16 cast on the card differs from numpy's rounding")
+    rho_n = PlasmaConfig().units().rho_n_init
+    held = 0
+    for st in (straight["state"], want):
+        for to_delta in (False, True):
+            on_card = checkpoint.convert_neutral_layout(
+                st, to_delta=to_delta, rho_n_ref=rho_n)
+            host_st = st._replace(**{k: getattr(st, k).cpu() for k in
+                                     ("f", "g", "Ex", "Ey", "phi")})
+            on_cpu = checkpoint.convert_neutral_layout(
+                host_st, to_delta=to_delta, rho_n_ref=rho_n)
+            _same_state("convert_neutral_layout card vs CPU", on_card,
+                        on_cpu)
+            held += 1
+    print(f"cast: {x.size} values ({tie.size} near bf16 ties) bitwise equal "
+          f"to numpy's rounding and the CPU's; convert_neutral_layout: "
+          f"{held} conversions (1024^2 bf16, 512^2 f32) bitwise equal to "
+          f"the CPU's")
+
+    print("== phase 14g: the plasma CLI with --shard 1 --multistep 8 on a "
+          "one-rank NCCL group, 512^2 NONE f32")
+    # --shard 1 takes the windowed path (the per-step auto mesh wants 2
+    # ranks or more): 24 steps, 3 windows, and a resume at step 16
+    grid = ["--nx", "512", "--ny", "512", "--poisson", "NONE", "--multistep",
+            "8", "--device", "cuda"]
+    single = os.path.join(OUT, "ckpt_shard_single")
+    run_plasma.main(grid + ["--steps", "24", "--out", single])
+    _one_rank_group("checkpoint")
+    try:
+        sh = os.path.join(OUT, "ckpt_shard1")
+        run_plasma.main(grid + ["--shard", "1", "--steps", "24", "--out", sh])
+        run_plasma.main(grid + ["--shard", "1", "--steps", "16",
+                                "--checkpoint-every", "16",
+                                "--out", sh + "_b"])
+        _reset_launches()
+        s = run_plasma.main(grid + [
+            "--shard", "1", "--steps", "24", "--resume",
+            os.path.join(sh + "_b", "ckpt_000016.npz"), "--out", sh + "_c"])
+        windows = sum(s["launches"].values())
+        require(windows == 1 and s["mesh"] == {"dy": 1, "dx": 1},
+                f"--shard 1 resumed launches {s['launches']}")
+    finally:
+        dist.destroy_process_group()
+    want_final = checkpoint.load(os.path.join(single, "final_state.npz"),
+                                 dev)
+    for where in (sh, sh + "_c"):
+        _same_state(f"--shard 1 {os.path.basename(where)} final_state.npz",
+                    checkpoint.load(os.path.join(where, "final_state.npz"),
+                                    dev), want_final)
+    print("rank 0's final_state.npz bitwise equal to the single-device "
+          "run's, straight and resumed at step 16 (one window launch)")
+
+    print("== phase 14h: the watchdog at 2048^2 f32")
+    cfg = dataclasses.replace(PlasmaConfig(), NX=2048, NY=2048,
+                              dtype=torch.float32, neutral_delta=True,
+                              backend="fused")
+    step = plasma.make_step(cfg)
+    state = step(plasma.init_state(cfg, dev))
+    g = state.g.clone()
+    g[1, 4, 1000, 1500] = float("nan")
+    state = state._replace(g=g)
+    wd = Watchdog(every=2)
+    raised = None
+    for t in range(4):
+        state = step(state)
+        try:
+            state = wd.check(t, state)
+        except BlowupError as e:
+            raised = e.step
+            break
+    require(raised == 1, f"the watchdog raised at {raised}, want t = 1")
+    fresh = step(plasma.init_state(cfg, dev))
+    for value in (float("inf"), -float("inf")):
+        f = fresh.f.clone()
+        f[2, 7, 2047, 0] = value
+        require(not bool(finite_reduction(fresh._replace(f=f))),
+                f"finite_reduction missed {value} on the card")
+    del f
+    reduce_ms = _device_ms(lambda: finite_reduction(fresh), 20)
+    check_ms = _time_ms(lambda: wd.check(1, fresh), 20)
+    step_ms = _time_ms(lambda: step(fresh), 10)
+    print(f"NaN in g at step 0: BlowupError at the first check (t = "
+          f"{raised}); +-inf in f found; the reduction (min and max of f, "
+          f"g, E, phi) {reduce_ms:.4f} ms on the device, one check with "
+          f"its host read {check_ms:.4f} ms, beside a step's {step_ms:.4f} "
+          f"ms; {card_line()}")
+    del state, fresh, g
+    torch.cuda.empty_cache()
+
+    print("== phase 14k: a checkpoint's write and load at 1024^2 bf16")
+    st = resumed["state"]
+    cfg = dataclasses.replace(PlasmaConfig(), NX=1024, NY=1024,
+                              storage="bf16", neutral_delta=True,
+                              dtype=torch.float32)
+    path = os.path.join(OUT, "ckpt_1024_timing", "ckpt.npz")
+    times = {"write": [], "load": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        checkpoint.save(path, st, neutral_delta=True, storage="bf16")
+        times["write"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back = checkpoint.reconcile_resumed_state(
+            checkpoint.load(path, dev, dtype=torch.float32), path, cfg,
+            log=lambda *a: None)
+        torch.cuda.synchronize()
+        times["load"].append((time.perf_counter() - t0) * 1e3)
+    _same_state("1024^2 bf16 save + load", back, st)
+    mb = os.path.getsize(path) / 2 ** 20
+    raw = sum(t.numel() * t.element_size() for t in st
+              if isinstance(t, torch.Tensor)) / 2 ** 20
+    print(f"write {min(times['write']):.1f}-{max(times['write']):.1f} ms, "
+          f"load + reconcile {min(times['load']):.1f}-"
+          f"{max(times['load']):.1f} ms (3 runs, warm file cache), "
+          f"{raw:.1f} MiB of state in a {mb:.1f} MiB file; {card_line()}")
+
+
+def phase_profile_and_drift():
+    """Phases 14i and 14j: --profile on the golden CLI; the drift table."""
+    import importlib.util
+    import torch
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.kernels import fused_step
+
+    print("== phase 14i: the golden CLI with --profile, 10 steps")
+    trace_dir = os.path.join(OUT, "profile")
+    path = os.path.join(trace_dir, "trace_rank0.json")
+    if os.path.exists(path):
+        os.remove(path)
+    fused_step.LAUNCHES = 0
+    run_plasma.main(["--f64", "--steps", "10", "--profile", trace_dir,
+                     "--out", os.path.join(OUT, "profile_run")])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    tiles = [e for e in kernels if "plasma_tiles_kernel" in e.get("name", "")]
+    require(len(tiles) == 10 == fused_step.LAUNCHES,
+            f"the trace names the collide+stream kernel {len(tiles)} times "
+            f"({fused_step.LAUNCHES} launches)")
+    dur = sorted(e.get("dur", 0) for e in tiles)
+    print(f"{os.path.relpath(path, HERE)}: {len(events)} events, "
+          f"{len(kernels)} kernels, plasma_tiles_kernel 10 times (median "
+          f"{dur[len(dur) // 2]} us)")
+
+    print("== phase 14j: scripts/measure_drift_torch.py on the card")
+    spec = importlib.util.spec_from_file_location(
+        "measure_drift_torch",
+        os.path.join(HERE, "scripts", "measure_drift_torch.py"))
+    drift = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drift)
+    fused_step.LAUNCHES = 0
+    errs = drift.main(["--json", os.path.join(OUT, "drift.json")])
+    require(fused_step.LAUNCHES == 4 * 200, f"measure_drift launched "
+            f"collide_stream {fused_step.LAUNCHES} times, want 800")
+    for k in ("rho_n", "ux_n", "uy_n", "T_n"):
+        require(errs["delta f32"][k] <= 1e-3, f"drift: delta f32 {k} "
+                f"{errs['delta f32'][k]:.3e} > 1e-3 of scale")
+    require(errs["classic f32"]["T_n"] >= 1.0, f"drift: classic f32 T_n "
+            f"{errs['classic f32']['T_n']:.3e}, the documented divergence "
+            f"is >= 1")
+    print(f"delta f32 neutral rows within 1e-3 of scale, classic T_n "
+          f"{errs['classic f32']['T_n']:.3e}; 800 collide_stream launches; "
+          f"{torch.cuda.get_device_name(0)}")
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
     ap.add_argument("--only", default=None,
-                    metavar="3,4,5,6,7,8,9,10,11,12,13",
+                    metavar="3,4,5,6,7,8,9,10,11,12,13,14",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -3694,6 +4165,11 @@ def main(argv=None) -> int:
         launches["collide_stream_multistep_gated"] = timed(
             phase_gated_sharded)
         gated_times = timed(phase_gated_real_size)
+    if run("14"):
+        timed(phase_checkpoint_golden)
+        timed(phase_checkpoint_3d_cavity)
+        timed(phase_checkpoint_real_size)
+        timed(phase_profile_and_drift)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())

@@ -1,5 +1,5 @@
 """Lid-driven cavity CLI of the port: scripts/run_cavity.py without its
-video and checkpoint flags.
+video.
 
 The classic validation workload (old codes/LBM_classic): Re=100, 129^2,
 u_lid=0.1, 10k steps, compared against Ghia et al. (1982) centerlines.
@@ -11,6 +11,9 @@ u_lid=0.1, 10k steps, compared against Ghia et al. (1982) centerlines.
     python scripts/run_cavity_torch.py --device cpu --nx 33 --steps 50
     torchrun --nproc-per-node 2 scripts/run_cavity_torch.py --device cpu \
         --shard 2 --nx 32 --steps 50 --multistep 4    # 2 ranks, gloo
+    python scripts/run_cavity_torch.py --steps 6000 --checkpoint-every 2000
+    python scripts/run_cavity_torch.py \
+        --resume build/output/torch_cavity/ckpt_0006000.npz
 
 Defaults: --backend fused (the CUDA stored-macro kernel; --lean and
 --multistep select the other two cavity kernels) on --device cuda. There is
@@ -21,9 +24,16 @@ runs under torchrun --nproc-per-node N: each rank holds NY/N rows
 --device cpu, where the halo kernels' plain versions run; it takes the halo
 kernels whatever --backend says and composes with --lean, --multistep K
 and --storage bf16, as the JAX CLI's does. Rank 0 gathers the state and
-alone writes the outputs. Writes the centerline CSVs and the
-reference-schema timing CSV (poisson=-1, bc=-1) to --out and prints the
-Ghia check at 129^2 and Re=100. main(argv) returns a summary dict (wall
+alone writes the outputs. --checkpoint-every N marches in chunks of N
+steps and writes <out>/ckpt_<step>.npz after each (under --multistep K, a
+multiple of K keeps the windows of a straight run, so a resume is bitwise),
+then <out>/final_state.npz; --resume PATH continues a checkpoint of either
+package (its storage layout reconciled with --storage; the grid must
+match, since tau depends on NY) toward --steps, the total trajectory
+length. --profile DIR writes a torch.profiler trace of the timed loop.
+Writes the centerline CSVs and the reference-schema timing CSV
+(poisson=-1, bc=-1) to --out and prints the Ghia check at 129^2 and
+Re=100. main(argv) returns a summary dict (wall
 ms, MLUPS, each cavity kernel's launch count, the Ghia errors, finiteness,
 relative mass drift, the final state; under --shard the gathered state).
 """
@@ -38,10 +48,12 @@ import torch
 import torch.distributed as dist
 
 from .config import CavityConfig
-from .io import timing
+from .io import checkpoint as ckpt
+from .io import profile, timing
 from .kernels import build, fused_cavity
 from .models import cavity
 from .parallel import fused_sharded, mesh as pmesh, sharding
+from .utils.watchdog import state_is_finite
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -75,6 +87,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "--nproc-per-node N): the halo kernels, or with "
                         "--multistep K the gated window kernel on K-deep "
                         "ghost rows (parallel.fused_sharded)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="write <out>/ckpt_<step>.npz every N steps "
+                        "(plus final_state.npz at the end)")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="resume from a cavity checkpoint (storage layout "
+                        "reconciled to --storage)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the timed loop, "
+                        "DIR/trace_rank<r>.json")
     return p.parse_args(argv)
 
 
@@ -133,57 +154,86 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
         device = pmesh.init_distributed(device)
         m = pmesh.make_mesh((args.shard, 1), device.type)
     rank0 = m is None or dist.get_rank() == 0
+    log = print if rank0 else (lambda *a, **k: None)
+    log(f"cavity: {cfg.NX}^2, tau={cfg.tau:.4f}, {cfg.nsteps} steps")
     if rank0:
-        print(f"cavity: {cfg.NX}^2, tau={cfg.tau:.4f}, {cfg.nsteps} steps")
         os.makedirs(args.out, exist_ok=True)
     if device.type == "cuda" and cfg.backend == "fused":
         build.load()   # build the kernels outside the timer
-    state = cavity.init_state(cfg, device)
+    state = initial_state(args, cfg, device, log)
+    start_step = state.step
     mass0 = _mass(cfg, state.f)
+    # nsteps is the TOTAL trajectory length: a resumed run does the rest,
+    # in chunks of the checkpoint cadence
+    target = max(cfg.nsteps - start_step, 0)
+    every = args.checkpoint_every
+    if every and cfg.multistep and every % cfg.multistep:
+        log(f"--checkpoint-every {every} is not a multiple of --multistep "
+            f"{cfg.multistep}: each chunk ends in a shorter window, so a "
+            f"resumed run is not bitwise equal to a straight one")
+    chunk = min(every, target) if every else target
+    lengths = {k for k in {chunk, target % chunk if chunk else 0} if k}
     if m is None:
-        roll = cavity.make_rollout(cfg)
+        rolls = {k: cavity.make_rollout(cfg, k) for k in lengths}
     else:
         maker = (fused_sharded.make_fused_sharded_cavity_multistep_rollout
                  if cfg.multistep else
                  fused_sharded.make_fused_sharded_cavity_rollout)
         try:
-            roll = maker(cfg, m, cfg.nsteps)
+            rolls = {k: maker(cfg, m, k) for k in lengths}
         except ValueError as e:
             raise SystemExit(f"--shard: {e}")
         state = sharding.shard_cavity_state(state, m)
-        if rank0:
-            print(f"sharded over mesh {{'dy': {args.shard}, 'dx': 1}}")
+        log(f"sharded over mesh {{'dy': {args.shard}, 'dx': 1}}")
     launches0 = dict(fused_cavity.LAUNCHES)
 
+    def save(name, state):
+        """Every rank takes part in the gather; rank 0 writes."""
+        full = state if m is None else sharding.gather_cavity_state(state, m)
+        if rank0:
+            path = os.path.join(args.out, name)
+            ckpt.save_cavity(path, full, storage=cfg.storage)
+            print(f"checkpoint: {path}")
+        return full
+
     timer = timing.StepTimer(cfg.NX, cfg.NY)
-    timer.start()
-    state = roll(state)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timer.tick(cfg.nsteps)
-    wall_ms = timer.wall_s * 1000
-    mlups = cfg.NX * cfg.NY * cfg.nsteps / (wall_ms * 1e3)
+    with profile.trace(args.profile, device, 0 if m is None
+                       else dist.get_rank()):
+        timer.start()
+        done = 0
+        while done < target:
+            k = min(chunk, target - done)
+            state = rolls[k](state)
+            done += k
+            timer.tick(k)
+            if every and done % every == 0:
+                save(f"ckpt_{state.step:07d}.npz", state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall_ms = timer.wall_s * 1000
+        mlups = timer.mlups
     launches = {k: n - launches0[k] for k, n in fused_cavity.LAUNCHES.items()}
-    if m is not None:
+    if every:
+        state = save("final_state.npz", state)
+    elif m is not None:
         state = sharding.gather_cavity_state(state, m)
-        n_devices = dist.get_world_size()
-    else:
-        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_devices = (dist.get_world_size() if m is not None else
+                 torch.cuda.device_count() if device.type == "cuda" else 1)
 
     ghia = None
     if cfg.NX == 129 and abs(cfg.Re - 100.0) < 1e-9:
         ghia = cavity.ghia_errors(state, cfg.u_lid)
-    finite = all(bool(torch.isfinite(t.float()).all())
-                 for t in (state.f, state.rho, state.ux, state.uy))
+    finite = state_is_finite(state)
     mass_drift = abs(_mass(cfg, state.f) - mass0) / mass0
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
-    summary = dict(NX=cfg.NX, steps=cfg.nsteps, wall_ms=wall_ms,
-                   mlups=mlups, device=device_name, backend=cfg.backend,
-                   storage=cfg.storage, dtype=str(cfg.dtype),
-                   lean=cfg.lean_macros, multistep=cfg.multistep,
-                   n_devices=n_devices, launches=launches, ghia=ghia,
-                   finite=finite, mass_drift=mass_drift, state=state)
+    summary = dict(NX=cfg.NX, steps=target, start_step=start_step,
+                   wall_ms=wall_ms, mlups=mlups, device=device_name,
+                   backend=cfg.backend, storage=cfg.storage,
+                   dtype=str(cfg.dtype), lean=cfg.lean_macros,
+                   multistep=cfg.multistep, n_devices=n_devices,
+                   launches=launches, ghia=ghia, finite=finite,
+                   mass_drift=mass_drift, state=state)
     if not rank0:
         return summary
     (yp, up), (xp, vp) = cavity.centerline_profiles(state, cfg.u_lid)
@@ -196,9 +246,11 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
               f"max|dv|={ghia['v_max']:.4f}")
     timing.append_timing_csv(
         os.path.join(args.out, "simulation_time_details.csv"),
-        NX=cfg.NX, NY=cfg.NY, nsteps=cfg.nsteps, n_devices=n_devices,
+        NX=cfg.NX, NY=cfg.NY, nsteps=target, n_devices=n_devices,
         poisson=-1, bc=-1, wall_ms=wall_ms)
-    print(f"cavity done: {wall_ms:.0f} ms ({mlups:.2f} MLUPS) on "
+    print(f"cavity done: {target} steps"
+          + (f" from step {start_step}" if start_step else "") + ", "
+          f"{wall_ms:.0f} ms ({mlups:.2f} MLUPS) on "
           f"{device_name}, backend {cfg.backend}, storage {cfg.storage}, "
           f"{cfg.dtype}, lean {cfg.lean_macros}, multistep {cfg.multistep}"
           + (f", {n_devices} ranks" if args.shard else "")
@@ -206,3 +258,24 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
           f"{mass_drift:.3e}; kernel launches "
           + ", ".join(f"{k} {n}" for k, n in launches.items()))
     return summary
+
+
+def initial_state(args: argparse.Namespace, cfg: CavityConfig, device,
+                  log=print) -> cavity.CavityState:
+    """The cavity at rest on `device`, or with --resume the checkpoint's,
+    its storage layout reconciled with cfg; the grid must match (tau
+    depends on NY)."""
+    if not args.resume:
+        return cavity.init_state(cfg, device)
+    try:
+        state = ckpt.reconcile_cavity_state(
+            ckpt.load_cavity(args.resume, device), args.resume, cfg)
+    except OSError as e:
+        raise SystemExit(f"--resume: {e}")
+    if tuple(state.rho.shape) != (cfg.NY, cfg.NX):
+        raise SystemExit(
+            f"--resume checkpoint grid {tuple(state.rho.shape)} != run grid "
+            f"({cfg.NY}, {cfg.NX}): pass the matching --nx (tau depends on "
+            f"NY; a silent mismatch runs the wrong Reynolds number)")
+    log(f"resumed from {args.resume} at step {state.step}")
+    return state

@@ -17,6 +17,9 @@ CSV.
     torchrun --nproc-per-node 2 scripts/run_plasma_torch.py --device cpu \
         --shard 2 --multistep 4 --nx 32 --ny 32 --steps 10 \
         --bc bounceback --poisson NONE                     # sharded windows
+    python scripts/run_plasma_torch.py --steps 120 --checkpoint-every 40
+    python scripts/run_plasma_torch.py \
+        --resume build/output/torch/ckpt_000120.npz
 
 Defaults: --backend fused (the CUDA collide+stream kernel; GS/SOR/NPS
 solve in the CUDA solve kernel) on --device cuda. --multistep K runs K
@@ -34,6 +37,16 @@ rank 0 in one collective a step (a window), and rank 0 alone writes the
 CSVs. --shard N --multistep K runs K-step windows on an (N, 1) mesh of
 y-shards with K-row ghost slabs (NONE under either wall type, or FFT +
 bounce-back; --shard 1 allowed).
+--checkpoint-every N writes <out>/ckpt_<step>.npz whenever a step (a
+window end under --multistep) reaches a multiple of N, and every run ends
+with <out>/final_state.npz; --resume PATH continues a checkpoint of either
+package (io/checkpoint: the JAX package's npz layout) toward --steps, the
+absolute target. Under --shard every rank loads the file and keeps its
+block, and rank 0 writes the gathered state. --watchdog-every N checks the
+state for non-finite values every N steps (the loop's step index t, at
+(t + 1) % N == 0, as the JAX CLI: under --multistep, t is a window's
+first step) and raises BlowupError; under --shard the flag is all-reduced
+first. --profile DIR writes a torch.profiler trace of the timed loop.
 main(argv) returns a summary dict (the probe series, on rank 0 under
 --shard, and each kernel's launch count included).
 """
@@ -47,11 +60,13 @@ from typing import Optional, Sequence
 import torch
 
 from . import config as C
-from .io import debug_dump, probes, timing
+from .io import checkpoint as ckpt
+from .io import debug_dump, probes, profile, timing
 from .kernels import (collide_pallas, fft_tpu, fused_multistep, fused_step,
                       poisson_iter)
 from .models import plasma, plasma_staged
 from .parallel import fused_sharded, mesh as pmesh, sharding
+from .utils.watchdog import Watchdog, state_is_finite
 
 # each kernel wrapper's module, by the name of its TPU counterpart
 KERNELS = {"collide_stream": fused_step, "fused_collide": collide_pallas,
@@ -114,6 +129,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "K-row ghost windows on an (N, 1) mesh "
                         "(make_fused_sharded_multistep_rollout: NONE, or "
                         "FFT + bounce-back)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="write <out>/ckpt_<step>.npz when a step (a window "
+                        "end under --multistep) reaches a multiple of N")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="continue from a checkpoint of either package "
+                        "toward --steps (an absolute target)")
+    p.add_argument("--assume-ckpt-layout", choices=["classic", "delta"],
+                   default=None,
+                   help="declare the neutral-population layout of a "
+                        "pre-metadata checkpoint (newer checkpoints record "
+                        "it and don't need this)")
+    p.add_argument("--watchdog-every", type=int, default=100, metavar="N",
+                   help="NaN-watchdog cadence in steps (0 = off)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the timed loop, "
+                        "DIR/trace_rank<r>.json")
     p.add_argument("--out", default=os.path.join("build", "output", "torch"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
@@ -189,11 +220,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.shard:
         _check_shard(args, cfg)
     # rank 0 writes the outputs; one process alone is rank 0
-    rank0 = not args.shard or int(os.environ["RANK"]) == 0
+    rank0 = not args.shard or int(os.environ.get("RANK", 0)) == 0
+    log = print if rank0 else (lambda *a, **k: None)
 
     if rank0:
         os.makedirs(args.out, exist_ok=True)
     stride = cfg.multistep or 1
+    if args.checkpoint_every and args.checkpoint_every % stride:
+        log(f"--checkpoint-every {args.checkpoint_every} is not a multiple "
+            f"of --multistep {stride}: checkpoints are written only at the "
+            f"window ends that reach a multiple of it")
     dmp = staged = m = None
     if args.debug_dump:
         dmp = debug_dump.DebugDumper(cfg, os.path.join(args.out,
@@ -209,76 +245,103 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.shard and staged is None:
         own_group = not torch.distributed.is_initialized()
         device = pmesh.init_distributed(device)
+    state = initial_state(args, cfg, device, log)
+    start_step = state.step
+    # one rollout per window length: stride steps, and the remainder
+    lengths = {k for k in {stride, max(cfg.nsteps - start_step, 0) % stride}
+               if k}
+    if args.shard and staged is None:
         if cfg.multistep:
             m = pmesh.make_mesh((args.shard, 1), device.type)
-            # one rollout per window length, as the single-device branch
             rollouts = {k: fused_sharded.make_fused_sharded_multistep_rollout(
-                cfg, m, k) for k in {stride, cfg.nsteps % stride} if k}
+                cfg, m, k) for k in lengths}
             what = "sharded multistep"
         else:
             step, m, _ = fused_sharded.make_fused_sharded_step_auto(
                 cfg, args.shard, device.type)
             rollouts, what = {1: step}, "sharded"
-        if rank0:
-            print(f"{what} over mesh {mesh_shape_of(m)}")
-        # each rank builds the initial state and keeps its block
-        state = sharding.shard_state(plasma.init_state(cfg, device), m)
+        log(f"{what} over mesh {mesh_shape_of(m)}")
+        # each rank keeps its block of the initial (or resumed) state
+        state = sharding.shard_state(state, m)
         rec = probes.ShardedProbeRecorder(cfg.NX, cfg.NY, device,
                                           *sharding.block(
                                               cfg, m,
                                               torch.distributed.get_rank()))
     else:
-        state = plasma.init_state(cfg, device)
-        # one rollout per window length: stride steps, and the remainder
-        rollouts = {k: plasma.make_rollout(cfg, k)
-                    for k in {stride, cfg.nsteps % stride} if k}
+        rollouts = {k: plasma.make_rollout(cfg, k) for k in lengths}
+    wd = (Watchdog(every=args.watchdog_every,
+                   group=None if m is None else torch.distributed.group.WORLD)
+          if args.watchdog_every else None)
+
+    def save(name, state):
+        """Every rank takes part in the gather; rank 0 writes."""
+        full = state if m is None else sharding.gather_state(state, m)
+        if rank0:
+            ckpt.save(os.path.join(args.out, name),
+                      ckpt.with_fresh_phi(cfg, full),
+                      neutral_delta=cfg.neutral_delta, storage=cfg.storage)
+        return full
+
+    if start_step >= cfg.nsteps:
+        # --steps is an ABSOLUTE target (resume continues toward it)
+        log(f"resume: checkpoint already at step {start_step} >= --steps "
+            f"{cfg.nsteps}; nothing to run (raise --steps to continue "
+            f"further)")
     launches0 = launch_counts()
 
     timer = timing.StepTimer(cfg.NX, cfg.NY)
-    timer.start()
-    for t in range(0, cfg.nsteps, stride):
-        k = min(stride, cfg.nsteps - t)
-        # Reference alignment: row t holds the macros computed at the TOP
-        # of iteration t (the pre-step state) and the post-Poisson E of the
-        # same iteration, which lives on the post-step state. Under
-        # --multistep a row is a window: the macros before it, E after it.
-        if staged is not None:
-            state, feq, stages = staged(state, feq)
-            mac = stages["UpdateMacro"].mac
-            for stage in plasma_staged.STAGES:
-                dmp.dump_stage(t, stage, stages[stage])
-        else:
-            mac = plasma.compute_macros(cfg, state)
-            state = rollouts[k](state)
-        timer.tick(k)
-        rec.record(mac, state.Ex, state.Ey)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall_ms = timer.wall_s * 1000
+    rank = torch.distributed.get_rank() if m is not None else 0
+    with profile.trace(args.profile, device, rank):
+        timer.start()
+        for t in range(start_step, cfg.nsteps, stride):
+            k = min(stride, cfg.nsteps - t)
+            # Reference alignment: row t holds the macros computed at the
+            # TOP of iteration t (the pre-step state) and the post-Poisson E
+            # of the same iteration, which lives on the post-step state.
+            # Under --multistep a row is a window: the macros before it, E
+            # after it.
+            if staged is not None:
+                state, feq, stages = staged(state, feq)
+                mac = stages["UpdateMacro"].mac
+                for stage in plasma_staged.STAGES:
+                    dmp.dump_stage(t, stage, stages[stage])
+            else:
+                mac = plasma.compute_macros(cfg, state)
+                state = rollouts[k](state)
+            timer.tick(k)
+            if wd is not None:
+                state = wd.check(t, state)
+            rec.record(mac, state.Ex, state.Ey)
+            if args.checkpoint_every and (t + k) % args.checkpoint_every == 0:
+                save(f"ckpt_{t + k:06d}.npz", state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall_ms = timer.wall_s * 1000
+        mlups = timer.mlups
     if dmp is not None:
         dmp.close()
     launches = {k: n - launches0[k] for k, n in launch_counts().items()}
+    state = save("final_state.npz", state)
     if m is not None:
-        state = sharding.gather_state(state, m)
         n_devices = torch.distributed.get_world_size()
         if own_group:
             torch.distributed.destroy_process_group()
     else:
         n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
 
+    steps = max(cfg.nsteps - start_step, 0)
     series = rec.as_arrays()
     if rank0:
         rec.save_csv(os.path.join(args.out, "graphs"))
         timing.append_timing_csv(
             os.path.join(args.out, "simulation_time_plasma_details.csv"),
-            NX=cfg.NX, NY=cfg.NY, nsteps=cfg.nsteps, n_devices=n_devices,
+            NX=cfg.NX, NY=cfg.NY, nsteps=steps, n_devices=n_devices,
             poisson=cfg.poisson.value, bc=cfg.bc.value, wall_ms=wall_ms)
-    finite = all(bool(torch.isfinite(t.float()).all())
-                 for t in (state.f, state.g, state.Ex, state.Ey))
+    finite = state_is_finite(state)
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
-    summary = dict(NX=cfg.NX, NY=cfg.NY, steps=cfg.nsteps, wall_ms=wall_ms,
-                   mlups=timer.mlups, device=device_name,
+    summary = dict(NX=cfg.NX, NY=cfg.NY, steps=steps, start_step=start_step,
+                   wall_ms=wall_ms, mlups=mlups, device=device_name,
                    backend=cfg.backend, poisson=cfg.poisson.name,
                    bc=cfg.bc.name, storage=cfg.storage, dtype=str(cfg.dtype),
                    multistep=cfg.multistep, n_devices=n_devices,
@@ -287,8 +350,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    state=state)
     if not rank0:
         return summary
-    print(f"Simulation ended: {cfg.NX}x{cfg.NY}, {cfg.nsteps} steps, "
-          f"{wall_ms:.0f} ms ({timer.mlups:.2f} MLUPS) on {device_name}, "
+    print(f"Simulation ended: {cfg.NX}x{cfg.NY}, {steps} steps"
+          + (f" from step {start_step}" if start_step else "") + ", "
+          f"{wall_ms:.0f} ms ({mlups:.2f} MLUPS) on {device_name}, "
           f"backend {cfg.backend}, poisson {cfg.poisson.name}, "
           f"bc {cfg.bc.name}, storage {cfg.storage}, {cfg.dtype}"
           + (f", multistep {cfg.multistep}" if cfg.multistep else "")
@@ -297,6 +361,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           + (f"; {n_devices} ranks, mesh {summary['mesh']}" if m is not None
              else ""))
     return summary
+
+
+def initial_state(args: argparse.Namespace, cfg: C.PlasmaConfig, device,
+                  log=print) -> plasma.PlasmaState:
+    """The initial state on `device`, or with --resume the checkpoint's, its
+    neutral layout and storage reconciled with cfg (a pre-metadata file
+    needs --assume-ckpt-layout)."""
+    if not args.resume:
+        return plasma.init_state(cfg, device)
+    try:
+        state = ckpt.load_for_run(args.resume, cfg, device,
+                                  assume_layout=args.assume_ckpt_layout,
+                                  log=log)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"--resume: {e}")
+    log(f"resumed from {args.resume} at step {state.step}")
+    return state
 
 
 def mesh_shape_of(m) -> dict:

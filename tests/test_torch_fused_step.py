@@ -2,6 +2,10 @@
 against the JAX package's Pallas kernel (interpret mode), the launch count,
 the input checks, and the nvcc build helper.
 
+The kernels' inputs are warm states made by the port's plain step (held
+against the JAX step in test_torch_plasma.py), perturbed with a seed: one
+interpret-mode compile a case is the JAX side's whole cost.
+
 The CUDA kernel itself runs only on a GPU; chip_smoke.py holds it against
 this plain version there (this machine's tests import JAX, which the GPU
 machine does not have).
@@ -15,12 +19,12 @@ import pytest
 import torch
 
 from lbm_tpu.kernels.fused_step import collide_stream as jax_collide_stream
+from lbm_tpu_torch import interop
 from lbm_tpu_torch.kernels import build
 from lbm_tpu_torch.kernels import fused_step
 from lbm_tpu_torch.models import plasma as tplasma
 
-from torch_parity import (as_numpy, assert_close, configs, jax_state_after,
-                          perturb, to_jax, to_torch)
+from torch_parity import assert_close, configs, perturb, to_jax, to_torch
 
 torch.set_num_threads(1)
 
@@ -35,8 +39,9 @@ def _phys(cfg, delta):
 @pytest.mark.parametrize("delta", [False, True], ids=["native", "delta"])
 @pytest.mark.parametrize("ny, nx", [(16, 24), (32, 24)])
 def test_collide_stream_matches_jax_kernel(ny, nx, delta):
-    cfg_j, cfg_t = configs(NX=nx, NY=ny, neutral_delta=delta)
-    arrays = perturb(as_numpy(jax_state_after(cfg_j, 2)), seed=ny * nx)
+    _, cfg_t = configs(NX=nx, NY=ny, neutral_delta=delta)
+    warm = tplasma.make_rollout(cfg_t, 2)(tplasma.init_state(cfg_t, "cpu"))
+    arrays = perturb(interop.state_to_numpy(warm), seed=ny * nx)
     sj, st = to_jax(arrays), to_torch(arrays)
     phys = _phys(cfg_t, delta)
     want = jax_collide_stream(sj.f, sj.g, sj.Ex, sj.Ey, interpret=True,

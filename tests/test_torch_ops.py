@@ -1,11 +1,15 @@
 """lbm_tpu_torch.ops against lbm_tpu.ops on the same seeded state.
 
 Inputs: the JAX package's state after 2 steps at 16x24, plus a seeded
-relative perturbation of 1e-3, fed to both packages. Tolerances: f64 at
+relative perturbation of 1e-3, fed to both packages; each (mode, dtype)
+is made once and shared by the tests that read it, as are the macros of
+both packages on it. Tolerances: f64 at
 1e-12 relative (the two packages evaluate the same expression trees, so
 they differ by a few ulp at most); the bf16-mode thermal forms in f32 at
 rtol 1e-6.
 """
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -31,6 +35,7 @@ NY, NX = 16, 24
 MODES = ["native", "delta"]
 
 
+@functools.lru_cache(maxsize=None)
 def _inputs(mode, dtype="float64"):
     cfg_j, cfg_t = configs(dtype=dtype, NX=NX, NY=NY,
                            neutral_delta=(mode == "delta"))
@@ -41,6 +46,7 @@ def _inputs(mode, dtype="float64"):
     return to_jax(arrays), to_torch(arrays), u, cfg_t.taus, phys
 
 
+@functools.lru_cache(maxsize=None)
 def _macros(mode, dtype="float64"):
     sj, st, u, taus, phys = _inputs(mode, dtype)
     mj = jmacros.update_macro(sj.f, sj.g, sj.Ex, sj.Ey, **phys)

@@ -350,12 +350,18 @@ def test_cli_writes_timing_and_slice(tmp_path, monkeypatch, capsys):
     np.testing.assert_array_equal(sl["rho_q"], mac.rho_q[4].numpy())
 
 
+# --checkpoint-every and --resume were refused until checkpoints came
+# (ROADMAP Queue 1 item 13): those cases keep their ids and now hold the
+# refusal of a checkpoint that is not there
 @pytest.mark.parametrize("flags, message", [
     (["--backend", "pallas"], None),
     (["--multistep", "4"], "multi-chip only in 3-D"),
     (["--shard", "2"], "torchrun --nproc-per-node 2"),
-    (["--checkpoint-every", "5"], "Queue 1 item 13"),
-    (["--resume", "ckpt.npz"], "Queue 1 item 13"),
+    pytest.param(["--checkpoint-every", "5", "--resume", "missing.npz"],
+                 "--resume: [Errno 2] No such file",
+                 id="flags3-Queue 1 item 13"),
+    pytest.param(["--resume", "ckpt.npz"], "--resume: [Errno 2] No such file",
+                 id="flags4-Queue 1 item 13"),
     (["--storage", "bf16", "--f64"], "drop --f64")])
 def test_cli_refuses(flags, message, tmp_path):
     with pytest.raises(SystemExit) as e:

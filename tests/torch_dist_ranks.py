@@ -1,7 +1,7 @@
 """Rank bodies of tests/test_torch_sharded.py,
-tests/test_torch_cavity_sharded.py, tests/test_torch_sharded3d.py and
-tests/test_torch_multistep_sharded.py (not collected), and spawn(), which
-runs them.
+tests/test_torch_cavity_sharded.py, tests/test_torch_sharded3d.py,
+tests/test_torch_multistep_sharded.py and tests/test_torch_checkpoint.py
+(not collected), and spawn(), which runs them.
 
     python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
 
@@ -381,9 +381,75 @@ def window_runs(out_dir: str) -> None:
         torch.save(results, os.path.join(out_dir, "result.pt"))
 
 
+# the three CLIs under --shard 2: (label, CLI, flags, straight steps,
+# steps to the checkpoint)
+CHECKPOINT_CLI = [
+    ("plasma_fft", "plasma", ["--nx", "32", "--ny", "32", "--f64",
+                              "--watchdog-every", "1"], 4, 2),
+    ("plasma_windows", "plasma", ["--nx", "32", "--ny", "32", "--multistep",
+                                  "2", "--poisson", "NONE"], 6, 4),
+    ("cavity_windows", "cavity", ["--nx", "32", "--multistep", "2"], 8, 4),
+    ("column", "plasma3d", ["--n", "8", "--nz", "8", "--slice-every",
+                            "0"], 3, 2)]
+
+
+def checkpoint_runs(out_dir: str) -> None:
+    """On two ranks, each CHECKPOINT_CLI case straight and as a
+    checkpoint-and-resume pair, every rank loading the file; then a resume
+    of the plasma case from a file whose NaN lies in rank 1's block, which
+    the all-reduced watchdog must raise on both ranks. Rank 0 saves the
+    final_state.npz files' states and each rank's BlowupError step."""
+    from lbm_tpu_torch import run_cavity, run_plasma, run_plasma3d
+    from lbm_tpu_torch.io import checkpoint
+    from lbm_tpu_torch.utils.watchdog import BlowupError
+
+    clis = {"plasma": (run_plasma.main, checkpoint.load),
+            "cavity": (run_cavity.main, checkpoint.load_cavity),
+            "plasma3d": (run_plasma3d.main, checkpoint.load3d)}
+    results = {}
+    for label, cli, flags, steps, at in CHECKPOINT_CLI:
+        main, load = clis[cli]
+        base = ["--device", "cpu", "--shard", "2", *flags]
+        every = ["--checkpoint-every", str(at)]
+        run = os.path.join(out_dir, label)
+        main(base + ["--steps", str(steps), *every, "--out", run + "_a"])
+        main(base + ["--steps", str(at), *every, "--out", run + "_b"])
+        width = 7 if cli == "cavity" else 6
+        ck = os.path.join(run + "_b", f"ckpt_{at:0{width}d}.npz")
+        main(base + ["--steps", str(steps), *every, "--resume", ck,
+                     "--out", run + "_c"])
+        dist.barrier()
+        results[label] = {r: load(os.path.join(run + r, "final_state.npz"),
+                                  "cpu") for r in ("_a", "_c")}
+    # a NaN in g of the bottom half: rank 1's rows of the (2, 1) mesh;
+    # without a solve it reaches rank 0's rows only after 8 steps
+    bad = results["plasma_fft"]["_c"]
+    g = bad.g.clone()
+    g[0, 0, 24, 5] = float("nan")
+    path = os.path.join(out_dir, "nan.npz")
+    if dist.get_rank() == 0:
+        checkpoint.save(path, bad._replace(g=g, step=0),
+                        neutral_delta=False, storage="native")
+    dist.barrier()
+    try:
+        run_plasma.main(["--device", "cpu", "--shard", "2", "--nx", "32",
+                         "--ny", "32", "--f64", "--poisson", "NONE",
+                         "--steps", "5", "--resume",
+                         path, "--watchdog-every", "2", "--out",
+                         os.path.join(out_dir, "nan")])
+        raised = None
+    except BlowupError as e:
+        raised = e.step
+    every_rank = [None] * 2
+    dist.all_gather_object(every_rank, raised)
+    results["blowup_steps"] = every_rank
+    if dist.get_rank() == 0:
+        torch.save(results, os.path.join(out_dir, "result.pt"))
+
+
 SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli,
              "cavity": cavity_runs, "column": column_runs,
-             "windows": window_runs}
+             "windows": window_runs, "checkpoint": checkpoint_runs}
 
 
 def main(argv) -> None:
