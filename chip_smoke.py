@@ -238,7 +238,31 @@ phase fails:
   14j. scripts/measure_drift_torch.py on the card: its drift table through
      the fused kernel, the delta column's rho_n, ux_n, uy_n and T_n within
      1e-3 of scale, the classic column's T_n at or past 1;
-  14k. a checkpoint's write and load ms at 1024^2 bf16.
+  14k. a checkpoint's write and load ms at 1024^2 bf16;
+  15a. rendering (lbm_tpu_torch.io.colormap): render_all on the card
+     uint8-equal to render_all on CPU copies of the same fields (the golden
+     end state's macros in f64 and f32, a seeded 2048^2 f32 state) and the
+     cavity's |u|^2 frame at 2048^2; render_all and its copy into pinned
+     host memory timed at 200^2 and 2048^2;
+  15b. the golden CLI (f32) with its videos on and off, ms a step in
+     three alternating pairs of runs;
+     its three AVIs (the native writer) read back: 200 frames of 600 x 230,
+     600 x 460 and 600 x 230, none constant; --multistep 8 --video-every 8
+     writes 25; the NONE windows' videos (--multistep 8) with --shard 1 on
+     a one-rank NCCL group bitwise equal to the single-device run's;
+  15c. the cavity CLI at 129^2 for 10,000 steps with --video-every 100:
+     100 frames; at 2048^2 for 2,000 steps (20 frames) with the video on
+     and off in three alternating pairs, ms a step each; --multistep 100
+     with --shard 1 on a one-rank NCCL group
+     frame for frame equal to the single-device run;
+  15d. scripts/validate_cavity_re_torch.py --nx 256 (Re 100, 400, 1000)
+     against artifacts/cavity_re/summary.json: steps within 20,000, each
+     station and each max error within 2e-3 of the lid speed;
+  15e. the watchdog under --multistep 8 --watchdog-every 100 checks the
+     windows that cross steps 100 and 200, and a NaN in a resumed state
+     raises at the first of them.
+The earlier phases pass --no-video (and --no-plots) to the 2-D and cavity
+CLIs, so that their times and launch counts are those of the runs alone.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
 64x4096 f64), where the JAX package needs its split kernel pair.
 
@@ -284,6 +308,13 @@ SWEEP_FLOP = {("gs", False): 8, ("gs", True): 11, ("nps", False): 14}
 NO_HALO = {"collide_stream_halo": 0, "collide_stream_halo2d": 0}
 # and the gated window's (the sharded windows' kernel)
 NO_GATED = {"collide_stream_multistep_gated": 0}
+
+
+# the earlier phases run the 2-D and cavity CLIs without their videos and
+# probe plots, so that their times and launch counts keep their meaning;
+# phase 15 turns them on
+NO_VIDEO = ["--no-video", "--no-plots"]
+NO_CAVITY_VIDEO = ["--no-video"]
 
 
 # the straight CLI runs of phases 4, 7b and 8b (their summaries), which
@@ -644,7 +675,8 @@ def phase_golden():
     fused_step.LAUNCHES = 0
     summary = run_plasma.main(["--preset", "golden", "--f64", "--backend",
                                "fused", "--device", "cuda",
-                               "--out", os.path.join(OUT, "golden")])
+                               "--out", os.path.join(OUT, "golden")]
+                              + NO_VIDEO)
     launches = fused_step.LAUNCHES
     STRAIGHT["golden"] = summary
     require(launches == 200, f"golden run launched the kernel {launches} "
@@ -697,7 +729,7 @@ def phase_sor_bounceback():
             "--nx", "200", "--ny", "200", "--steps", str(steps), "--f64",
             "--poisson", "SOR", "--bc", "bounceback", "--backend", backend,
             "--device", "cuda", "--out",
-            os.path.join(OUT, f"sor_bb_{backend}")])
+            os.path.join(OUT, f"sor_bb_{backend}")] + NO_VIDEO)
         require(runs[backend]["finite"], f"{backend}: state not finite")
         sweeps[backend] = (poisson.LAST_SWEEPS if backend == "plain"
                            else int(poisson_iter.LAST_SWEEPS))
@@ -1195,7 +1227,7 @@ def phase_cavity_ghia():
                              "100", "--u-lid", "0.1", "--backend", "fused",
                              "--device", "cuda", "--out",
                              os.path.join(OUT, "cavity_" + label.replace(
-                                 " ", "_"))] + flags)
+                                 " ", "_"))] + flags + NO_CAVITY_VIDEO)
         counts = dict(fused_cavity.LAUNCHES)
         require(counts == {k: want if k == kernel else 0 for k in counts},
                 f"{label}: launches {counts}, want {want} of {kernel}")
@@ -1453,7 +1485,8 @@ def phase_multistep_golden():
     _reset_launches()
     summary = run_plasma.main(["--preset", "golden", "--f64", "--multistep",
                                "8", "--device", "cuda", "--out",
-                               os.path.join(OUT, "golden_multistep")])
+                               os.path.join(OUT, "golden_multistep")]
+                              + NO_VIDEO)
     STRAIGHT["golden_multistep"] = summary
     launches = summary["launches"]
     want = {"collide_stream": 0, "fused_collide": 0, "solve_iter": 0,
@@ -2246,7 +2279,7 @@ def phase_debug_dump():
     summary = run_plasma.main(["--device", "cuda", "--f64", "--nx", "8",
                                "--ny", "8", "--steps", "5", "--poisson",
                                "FFT", "--debug-variant", "--debug-dump",
-                               "--out", out])
+                               "--out", out] + NO_VIDEO)
     require(summary["device"] == torch.cuda.get_device_name(0)
             and summary["backend"] == "plain" and summary["finite"],
             f"debug CLI ran on {summary['device']}, backend "
@@ -2796,10 +2829,10 @@ def phase_cavity_sharded_cli():
                     "--u-lid", "0.1", "--device", "cuda"] + flags
             tag = label.replace(" ", "_")
             single = run_cavity.main(base + ["--out", os.path.join(
-                OUT, "cavity128_" + tag)])
+                OUT, "cavity128_" + tag)] + NO_CAVITY_VIDEO)
             _reset_cavity_launches()
             s = run_cavity.main(base + ["--shard", "1", "--out", os.path.join(
-                OUT, "cavity128_shard_" + tag)])
+                OUT, "cavity128_shard_" + tag)] + NO_CAVITY_VIDEO)
             counts = dict(fused_cavity.LAUNCHES)
             require(counts == {k: want if k == kernel else 0 for k in counts},
                     f"--shard 1 {label}: launches {counts}, want {want} of "
@@ -2822,7 +2855,8 @@ def phase_cavity_sharded_cli():
         s = run_cavity.main(["--nx", "129", "--steps", "10000", "--re",
                              "100", "--u-lid", "0.1", "--device", "cuda",
                              "--shard", "1", "--multistep", "100", "--out",
-                             os.path.join(OUT, "cavity_ghia_shard")])
+                             os.path.join(OUT, "cavity_ghia_shard")]
+                            + NO_CAVITY_VIDEO)
         g = s["ghia"]
         for key, gate in GHIA_GATE.items():
             require(g[key] < gate, f"--shard 1 --multistep 100 Ghia: {key} "
@@ -3529,12 +3563,12 @@ def phase_gated_sharded():
     # (the golden 200^2, 200 steps)
     flags = ["--poisson", "NONE", "--bc", "bounceback", "--multistep", "8"]
     single_out = os.path.join(OUT, "plasma_bb_ms8")
-    run_plasma.main([*flags, "--out", single_out])
+    run_plasma.main([*flags, "--out", single_out] + NO_VIDEO)
     shard_out = os.path.join(OUT, "plasma_bb_shard1_ms8")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "1",
            os.path.join(HERE, "scripts", "run_plasma_torch.py"),
-           *flags, "--shard", "1", "--out", shard_out]
+           *NO_VIDEO, *flags, "--shard", "1", "--out", shard_out]
     r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                        timeout=300, env=dict(os.environ, PYTHONPATH=HERE))
     require(r.returncode == 0, f"torchrun CLI failed:\n{r.stderr[-3000:]}")
@@ -3714,12 +3748,12 @@ def phase_checkpoint_golden():
         key = "golden_multistep" if flags else "golden"
         out = os.path.join(OUT, key)
         straight = _straight(key, lambda: run_plasma.main(
-            base + flags + ["--out", out]))
+            base + flags + ["--out", out] + NO_VIDEO))
         ck_out = os.path.join(OUT, f"ckpt_{key}")
         t0 = time.perf_counter()
         run_plasma.main(base + flags + ["--steps", str(at),
                                         "--checkpoint-every", str(every),
-                                        "--out", ck_out])
+                                        "--out", ck_out] + NO_VIDEO)
         first_s = time.perf_counter() - t0
         names = sorted(n for n in os.listdir(ck_out) if n.startswith("ckpt"))
         require(names == [f"ckpt_{s:06d}.npz" for s in
@@ -3728,7 +3762,7 @@ def phase_checkpoint_golden():
         _reset_launches()
         resumed = run_plasma.main(base + flags + [
             "--resume", os.path.join(ck_out, f"ckpt_{at:06d}.npz"),
-            "--out", ck_out + "_resumed"])
+            "--out", ck_out + "_resumed"] + NO_VIDEO)
         kernel = ("collide_stream_multistep" if flags else "collide_stream")
         counts = resumed["launches"]
         require(counts == {k: want if k == kernel else 0 for k in counts},
@@ -3806,14 +3840,16 @@ def phase_checkpoint_3d_cavity():
         tag = label.replace(" ", "_")
         a = os.path.join(OUT, f"ckpt_cavity_{tag}")
         straight = run_cavity.main(base + flags + [
-            "--steps", "10000", "--checkpoint-every", "10000", "--out", a])
+            "--steps", "10000", "--checkpoint-every", "10000", "--out", a]
+            + NO_CAVITY_VIDEO)
         run_cavity.main(base + flags + ["--steps", "6000",
                                         "--checkpoint-every", "6000",
-                                        "--out", a + "_b"])
+                                        "--out", a + "_b"] + NO_CAVITY_VIDEO)
         _reset_cavity_launches()
         resumed = run_cavity.main(base + flags + [
             "--steps", "10000", "--checkpoint-every", "6000", "--resume",
-            os.path.join(a + "_b", "ckpt_0006000.npz"), "--out", a + "_c"])
+            os.path.join(a + "_b", "ckpt_0006000.npz"), "--out", a + "_c"]
+            + NO_CAVITY_VIDEO)
         counts = dict(fused_cavity.LAUNCHES)
         require(counts == {k: want if k == kernel else 0 for k in counts},
                 f"{label}: resumed launches {counts}")
@@ -3837,7 +3873,8 @@ def phase_checkpoint_3d_cavity():
         checkpoint.load_cavity(path, "cpu"), path, cfg64)
     _same_state("bf16 -> f64 reconcile, card vs CPU", on_card, on_cpu)
     s = run_cavity.main(base + ["--f64", "--steps", "10000", "--resume", path,
-                                "--out", os.path.join(OUT, "ckpt_cavity_f64")])
+                                "--out", os.path.join(OUT, "ckpt_cavity_f64")]
+                        + NO_CAVITY_VIDEO)
     require(s["finite"] and s["state"].f.dtype == torch.float64
             and s["start_step"] == 6000, "bf16 -> f64 resume")
     g = s["ghia"]
@@ -3867,13 +3904,13 @@ def phase_checkpoint_real_size():
           "resumed to 10")
     base = ["--preset", "1024", "--storage", "bf16", "--device", "cuda"]
     a = os.path.join(OUT, "ckpt_1024")
-    straight = run_plasma.main(base + ["--steps", "10", "--out", a])
+    straight = run_plasma.main(base + ["--steps", "10", "--out", a] + NO_VIDEO)
     run_plasma.main(base + ["--steps", "5", "--checkpoint-every", "5",
-                            "--out", a + "_b"])
+                            "--out", a + "_b"] + NO_VIDEO)
     _reset_launches()
     resumed = run_plasma.main(base + [
         "--steps", "10", "--resume", os.path.join(a + "_b", "ckpt_000005.npz"),
-        "--out", a + "_c"])
+        "--out", a + "_c"] + NO_VIDEO)
     require(resumed["launches"]["collide_stream"] == 5,
             f"1024^2 resumed launches {resumed['launches']}")
     _same_state("1024^2 bf16 final_state.npz",
@@ -3952,18 +3989,20 @@ def phase_checkpoint_real_size():
     grid = ["--nx", "512", "--ny", "512", "--poisson", "NONE", "--multistep",
             "8", "--device", "cuda"]
     single = os.path.join(OUT, "ckpt_shard_single")
-    run_plasma.main(grid + ["--steps", "24", "--out", single])
+    run_plasma.main(grid + ["--steps", "24", "--out", single] + NO_VIDEO)
     _one_rank_group("checkpoint")
     try:
         sh = os.path.join(OUT, "ckpt_shard1")
-        run_plasma.main(grid + ["--shard", "1", "--steps", "24", "--out", sh])
+        run_plasma.main(grid + ["--shard", "1", "--steps", "24", "--out", sh]
+                        + NO_VIDEO)
         run_plasma.main(grid + ["--shard", "1", "--steps", "16",
                                 "--checkpoint-every", "16",
-                                "--out", sh + "_b"])
+                                "--out", sh + "_b"] + NO_VIDEO)
         _reset_launches()
         s = run_plasma.main(grid + [
             "--shard", "1", "--steps", "24", "--resume",
-            os.path.join(sh + "_b", "ckpt_000016.npz"), "--out", sh + "_c"])
+            os.path.join(sh + "_b", "ckpt_000016.npz"), "--out", sh + "_c"]
+            + NO_VIDEO)
         windows = sum(s["launches"].values())
         require(windows == 1 and s["mesh"] == {"dy": 1, "dx": 1},
                 f"--shard 1 resumed launches {s['launches']}")
@@ -4056,7 +4095,7 @@ def phase_profile_and_drift():
         os.remove(path)
     fused_step.LAUNCHES = 0
     run_plasma.main(["--f64", "--steps", "10", "--profile", trace_dir,
-                     "--out", os.path.join(OUT, "profile_run")])
+                     "--out", os.path.join(OUT, "profile_run")] + NO_VIDEO)
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -4088,6 +4127,353 @@ def phase_profile_and_drift():
     print(f"delta f32 neutral rows within 1e-3 of scale, classic T_n "
           f"{errs['classic f32']['T_n']:.3e}; 800 collide_stream launches; "
           f"{torch.cuda.get_device_name(0)}")
+
+
+# phase 15: the frames of the golden CLI's three videos (rows, columns) at
+# 200^2, each row of tiles under a 30-px label strip
+GOLDEN_FRAMES = {"density": (230, 600), "velocity": (460, 600),
+                 "temperature": (230, 600)}
+# phase 15d: how far the Re sweep may land from the JAX package's committed
+# 256^2 run (artifacts/cavity_re/summary.json): steps to steady state, each
+# Ghia station's value and each max error, in lid units
+RE_STEPS_GATE, RE_SIM_GATE, RE_ERR_GATE = 20_000, 2e-3, 2e-3
+
+
+def _video_frames(where, path, n, shape, tiles=slice(30, 230)):
+    """The frames of an AVI that the port wrote: n of (rows, cols), none
+    whose `tiles` rows (the golden videos' first row of tiles, below its
+    label strip) are constant."""
+    from lbm_tpu_torch.io.avi import read_frames
+
+    fr = read_frames(path)
+    require(fr.shape == (n, *shape, 3),
+            f"{where}: {path} holds frames {fr.shape}, want {(n, *shape, 3)}")
+    flat = [i for i, f in enumerate(fr) if f[tiles].min() == f[tiles].max()]
+    require(not flat, f"{where}: frames {flat[:5]} of {path} are constant")
+    return fr
+
+
+def _golden_cfg(flags):
+    from lbm_tpu_torch import run_plasma
+    return run_plasma.build_config(run_plasma.parse_args(flags))
+
+
+def phase_render():
+    """Phase 15a: render_all on the card against the same function on CPU
+    copies of the same fields, uint8 for uint8: the golden end state's
+    macros in f64 (phase 4's run) and f32 (a --no-video golden run, which
+    15b reuses), a seeded 2048^2 f32 state, the cavity frame at 2048^2.
+    Times render_all and render_all + its copy into pinned host memory at
+    200^2 and 2048^2 by CUDA events."""
+    import torch
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.config import CavityConfig
+    from lbm_tpu_torch.io import colormap, video
+    from lbm_tpu_torch.models import cavity, plasma
+
+    print("== phase 15a: rendering on the card against the CPU")
+    card = card_line()
+    golden64 = _straight("golden", lambda: run_plasma.main(
+        ["--preset", "golden", "--f64", "--device", "cuda", "--out",
+         os.path.join(OUT, "golden")] + NO_VIDEO))
+    golden32 = _golden_f32()
+    cfg2048 = _golden_cfg(["--nx", "2048", "--ny", "2048"])
+    fields = {
+        "golden end state f64": colormap.macro_fields(plasma.compute_macros(
+            _golden_cfg(["--f64"]), golden64["state"])),
+        "golden end state f32": colormap.macro_fields(plasma.compute_macros(
+            _golden_cfg([]), golden32["state"])),
+        "seeded 2048^2 f32": colormap.macro_fields(plasma.compute_macros(
+            cfg2048, _seeded_state(cfg2048, "cuda", seed=15)))}
+    for where, f in fields.items():
+        got = colormap.render_all(*f)
+        want = colormap.render_all(*[t.cpu() for t in f])
+        for name, g, w in zip(GOLDEN_FRAMES, got, want):
+            bad = int((g.cpu() != w).sum())
+            require(bad == 0, f"15a {where}: {bad} pixels of the {name} "
+                    f"frame differ from the CPU's render")
+        print(f"{where}: the three frames {[tuple(g.shape) for g in got]} "
+              f"uint8-equal to the CPU's")
+    ccfg = CavityConfig(NX=2048, NY=2048, nsteps=500, u_lid=0.1, Re=100.0,
+                        backend="fused")
+    cs = cavity.make_rollout(ccfg)(cavity.init_state(ccfg, "cuda"))
+    got = colormap.cavity_frame(cs.ux, cs.uy)
+    bad = int((got.cpu() != colormap.cavity_frame(cs.ux.cpu(),
+                                                  cs.uy.cpu())).sum())
+    require(bad == 0, f"15a cavity 2048^2: {bad} channel values differ "
+            f"from the CPU's frame")
+    require(got.min() != got.max(), "15a cavity 2048^2: a constant frame")
+    print("cavity 2048^2 after 500 steps: the |u|^2 frame uint8-equal to "
+          "the CPU's")
+    for where in ("golden end state f32", "seeded 2048^2 f32"):
+        f = fields[where]
+        render = _time_ms(lambda: colormap.render_all(*f), 50)
+        copied = _time_ms(lambda: video.to_host(colormap.render_all(*f)), 50)
+        nbytes = sum(g.numel() for g in colormap.render_all(*f))
+        ny, nx = f[0].shape
+        rec = video.VideoRecorder(os.path.join(OUT, f"render_{nx}"), nx, ny,
+                                  log=lambda *a: None)
+        try:
+            whole = _time_ms(lambda: video.to_host([
+                rec._label(k, colormap.expand(g)) for k, g in zip(
+                    GOLDEN_FRAMES, colormap.render_all(*f))]), 50)
+        finally:
+            rec.close()
+        print(f"[{card}] render_all at {tuple(f[0].shape)}: {render:.4f} ms "
+              f"on the device; with the copy of its {nbytes} bytes into "
+              f"pinned host memory {copied:.4f} ms; the recorder's device "
+              f"work (render, expand to RGB, label strips, copy of "
+              f"{3 * nbytes + 3 * 30 * 4 * 3 * nx} bytes) {whole:.4f} ms")
+    cf = _time_ms(lambda: colormap.cavity_frame(cs.ux, cs.uy), 50)
+    print(f"[{card}] cavity_frame at 2048^2: {cf:.4f} ms on the device")
+
+
+def _golden_f32():
+    """The golden CLI in f32 (its defaults) without video: 15a's render
+    holds and 15b's time without video."""
+    from lbm_tpu_torch import run_plasma
+    return _straight("golden_f32", lambda: run_plasma.main(
+        ["--device", "cuda", "--out", os.path.join(OUT, "golden_f32")]
+        + NO_VIDEO))
+
+
+def _encode_ms(reps=20):
+    """Host ms the recorder's encoder thread spends on one step's three
+    golden frames, labelled RGB from the device: the three native AVI
+    writes (into a scratch directory)."""
+    from lbm_tpu_torch.io import video
+
+    rng = np.random.default_rng(16)
+    frames = [rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+              for shape in GOLDEN_FRAMES.values()]
+    rec = video.VideoRecorder(os.path.join(OUT, "encode_timing"), 200, 200,
+                              log=lambda *a: None)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for kind, frame in zip(GOLDEN_FRAMES, frames):
+                rec._writers[kind].write(frame)
+        return (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        rec.close()
+
+
+def _video_cost(what, main, flags, name, card, pairs=3):
+    """ms a step of a CLI with its video on and off, in alternating runs
+    (off, on, on, off, ...: `pairs` runs each way), so that drift of the
+    host's speed across the call falls on both. Returns the last run with
+    video."""
+    runs, last = {"on": [], "off": []}, None
+    order = (["off", "on", "on", "off"] * pairs)[:2 * pairs]
+    for i, mode in enumerate(order):
+        s = main(flags + (["--no-video"] if mode == "off" else [])
+                 + ["--out", os.path.join(OUT, f"{name}_{i}")])
+        runs[mode].append(s["wall_ms"] / s["steps"])
+        last = s if mode == "on" else last
+    on, off = (float(np.median(runs[k])) for k in ("on", "off"))
+    print(f"[{card}] {what}, ms a step in alternating runs: with video "
+          f"{', '.join(f'{v:.4f}' for v in runs['on'])}; without "
+          f"{', '.join(f'{v:.4f}' for v in runs['off'])}; medians "
+          f"{on:.4f} / {off:.4f} (+{on - off:.4f})")
+    return last
+
+
+def phase_golden_video():
+    """Phase 15b: the golden CLI (200^2 f32, 200 steps) with its videos on
+    and off, ms a step each; its three AVIs read back (200 frames of 600 x
+    230, 600 x 460, 600 x 230, none constant); --multistep 8 --video-every
+    8 (25 frames); and the NONE windows' videos with --shard 1 on a
+    one-rank NCCL group bitwise equal to the single-device run's."""
+    import torch.distributed as dist
+    from lbm_tpu_torch import run_plasma
+
+    print("== phase 15b: the golden CLI's videos")
+    card = card_line()
+    golden_off = _golden_f32()
+    _reset_launches()
+    on = run_plasma.main(["--device", "cuda", "--out",
+                          os.path.join(OUT, "golden_video")])
+    require(on["launches"]["collide_stream"] == 200 and on["finite"],
+            f"golden with video: launches {on['launches']}")
+    require(golden_off["launches"]["collide_stream"] == 200,
+            f"golden without video: launches {golden_off['launches']}")
+    for kind, shape in GOLDEN_FRAMES.items():
+        _video_frames(f"15b {kind}", on["video"][kind], 200, shape)
+    print("3 AVIs of 200 frames read back")
+    _video_cost("golden 200^2 f32, 200 steps", run_plasma.main,
+                ["--device", "cuda", "--no-plots"], "golden_pair", card)
+    print(f"the encoder thread's work a step on this host: {_encode_ms():.4f}"
+          f" ms (the three AVI writes)")
+    ms = run_plasma.main(["--device", "cuda", "--multistep", "8",
+                          "--video-every", "8", "--out",
+                          os.path.join(OUT, "golden_video_ms8")])
+    for kind, shape in GOLDEN_FRAMES.items():
+        _video_frames(f"15b --multistep 8 {kind}", ms["video"][kind], 25,
+                      shape)
+    print(f"[{card}] --multistep 8 --video-every 8: 25 frames a video, "
+          f"{ms['wall_ms'] / ms['steps']:.4f} ms a step")
+    # the per-step sharded step needs two ranks or more; the windows run on
+    # a world of one (NONE, 8-row ghost slabs, the gated kernel)
+    flags = ["--device", "cuda", "--poisson", "NONE", "--multistep", "8",
+             "--video-every", "8", "--no-plots"]
+    single = run_plasma.main(flags + ["--out", os.path.join(
+        OUT, "golden_video_none")])
+    _one_rank_group("video")
+    try:
+        shard = run_plasma.main(flags + ["--shard", "1", "--out", os.path.join(
+            OUT, "golden_video_none_shard1")])
+    finally:
+        dist.destroy_process_group()
+    for kind, shape in GOLDEN_FRAMES.items():
+        a = _video_frames(f"15b NONE {kind}", single["video"][kind], 25,
+                          shape)
+        b = _video_frames(f"15b NONE --shard 1 {kind}",
+                          shard["video"][kind], 25, shape)
+        require(np.array_equal(a, b), f"15b --shard 1 {kind}: "
+                f"{int((a != b).sum())} values differ from the single-"
+                f"device frames")
+    print(f"--shard 1 --multistep 8 (mesh {shard['mesh']}), NONE, 200 "
+          f"steps: the three videos (25 frames) bitwise equal to the single-"
+          f"device run's; [{card}] "
+          f"{shard['wall_ms'] / 200:.4f} ms a step (single-device "
+          f"{single['wall_ms'] / 200:.4f})")
+
+
+def phase_cavity_video():
+    """Phase 15c: the cavity CLI at Ghia's 129^2, 10,000 steps with
+    --video-every 100: 100 frames, the Ghia gate; then --multistep 100 on
+    one device and with --shard 1 on a one-rank NCCL group: frames bitwise
+    equal."""
+    import torch.distributed as dist
+    from lbm_tpu_torch import run_cavity
+
+    print("== phase 15c: the cavity CLI's video at 129^2")
+    card = card_line()
+    base = ["--nx", "129", "--steps", "10000", "--re", "100", "--u-lid",
+            "0.1", "--device", "cuda", "--video-every", "100"]
+    s = run_cavity.main(base + ["--out", os.path.join(OUT, "cavity_video")])
+    _video_frames("15c", s["video"], 100, (129, 129), tiles=slice(None))
+    for key, gate in GHIA_GATE.items():
+        require(s["ghia"][key] < gate, f"15c Ghia {key} {s['ghia'][key]}")
+    off = run_cavity.main(base + ["--no-video", "--out", os.path.join(
+        OUT, "cavity_video_off")])
+    print(f"[{card}] 129^2 stored, 10,000 steps: 100 frames; "
+          f"{s['wall_ms'] / 1e4:.5f} ms a step with the video, "
+          f"{off['wall_ms'] / 1e4:.5f} without")
+    big = _video_cost(
+        "cavity 2048^2 stored f32, 2,000 steps, a frame every 100",
+        run_cavity.main, ["--nx", "2048", "--steps", "2000", "--re", "100",
+                          "--u-lid", "0.1", "--device", "cuda",
+                          "--video-every", "100"], "cavity_pair", card)
+    _video_frames("15c 2048^2", big["video"], 20, (2048, 2048),
+                  tiles=slice(None))
+    flags = base + ["--multistep", "100"]
+    single = run_cavity.main(flags + ["--out", os.path.join(
+        OUT, "cavity_video_ms")])
+    _one_rank_group("cavity_video")
+    try:
+        shard = run_cavity.main(flags + ["--shard", "1", "--out", os.path.join(
+            OUT, "cavity_video_ms_shard1")])
+    finally:
+        dist.destroy_process_group()
+    a = _video_frames("15c --multistep 100", single["video"], 100,
+                      (129, 129), tiles=slice(None))
+    b = _video_frames("15c --shard 1", shard["video"], 100, (129, 129),
+                      tiles=slice(None))
+    require(np.array_equal(a, b), f"15c --shard 1 --multistep 100: "
+            f"{int((a != b).sum())} values differ from the single-device "
+            f"frames")
+    print(f"--shard 1 --multistep 100: 100 frames bitwise equal to the "
+          f"single-device run's; [{card}] {shard['wall_ms'] / 1e4:.5f} ms a "
+          f"step (single-device {single['wall_ms'] / 1e4:.5f})")
+
+
+def phase_cavity_re():
+    """Phase 15d: scripts/validate_cavity_re_torch.py --nx 256 (Re 100,
+    400 and 1000 to steady state through the stored kernel) against the
+    JAX package's artifacts/cavity_re/summary.json: steps within one
+    20,000-step chunk, every station's value and every max error within
+    2e-3 of the lid speed."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import validate_cavity_re_torch as sweep
+
+    print("== phase 15d: the Re 100/400/1000 Ghia sweep at 256^2")
+    card = card_line()
+    out_dir = os.path.join(OUT, "cavity_re_torch")
+    t0 = time.perf_counter()
+    out = sweep.main(["--nx", "256", "--out", out_dir])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(HERE, "artifacts", "cavity_re",
+                           "summary.json")) as fh:
+        ref = json.load(fh)["errors_vs_ghia"]
+    for re_n, got in out["errors_vs_ghia"].items():
+        want = ref[str(re_n)]
+        require(abs(got["steps"] - want["steps"]) <= RE_STEPS_GATE,
+                f"15d Re {re_n}: steady after {got['steps']} steps, the JAX "
+                f"run after {want['steps']}")
+        sim = max(abs(a["sim"] - b["sim"]) for a, b in
+                  zip(got["stations"], want["stations"]))
+        require(sim <= RE_SIM_GATE, f"15d Re {re_n}: a station's value "
+                f"{sim:.2e} from the JAX run's (gate {RE_SIM_GATE})")
+        errs = {k: got[k] - want[k] for k in got
+                if k.endswith("_max_err") or k.endswith("_misprints")}
+        worst = max(abs(v) for v in errs.values())
+        require(worst <= RE_ERR_GATE, f"15d Re {re_n}: max errors "
+                f"{errs} from the JAX run's (gate {RE_ERR_GATE})")
+        print(f"Re {re_n}: {got['steps']} steps (JAX {want['steps']}), "
+              f"residual {got['residual']:.2e}; u max {got['u_max_err']:.4f}"
+              f" (JAX {want['u_max_err']:.4f}), v max {got['v_max_err']:.4f}"
+              f" (JAX {want['v_max_err']:.4f}), excl. misprints "
+              f"{got['v_max_err_excl_misprints']:.4f}; stations within "
+              f"{sim:.2e} of JAX's; [{card}] {got['wall_s']:.2f} s")
+    print(f"[{card}] the sweep took {wall:.1f} s; {out_dir}/summary.json")
+
+
+def phase_watchdog_multistep():
+    """Phase 15e: the golden CLI with --multistep 8 --watchdog-every 100
+    checks at the windows that cross steps 100 and 200 (twice in 25
+    windows); from a resumed state holding a NaN it raises at the first
+    crossing, the window of steps 96-103."""
+    import torch
+    from lbm_tpu_torch import run_plasma
+    from lbm_tpu_torch.io import checkpoint
+    from lbm_tpu_torch.models import plasma
+    from lbm_tpu_torch.utils import watchdog
+
+    print("== phase 15e: the watchdog under --multistep 8")
+    flags = ["--device", "cuda", "--multistep", "8", "--watchdog-every",
+             "100"] + NO_VIDEO
+    checks = []
+    finite = watchdog.state_is_finite
+
+    def counted(state, group=None):
+        checks.append(state.step)
+        return finite(state, group)
+    watchdog.state_is_finite = counted
+    try:
+        s = run_plasma.main(flags + ["--out", os.path.join(OUT, "wd_ms8")])
+    finally:
+        watchdog.state_is_finite = finite
+    require(checks == [104, 200] and s["finite"],
+            f"15e: the watchdog checked the states at steps {checks}, want "
+            f"[104, 200]")
+    cfg = _golden_cfg([])
+    st = plasma.init_state(cfg, "cuda")
+    g = st.g.clone()
+    g[0, 0, 100, 100] = float("nan")
+    path = os.path.join(OUT, "wd_nan.npz")
+    checkpoint.save(path, st._replace(g=g), neutral_delta=cfg.neutral_delta,
+                    storage=cfg.storage)
+    try:
+        run_plasma.main(flags + ["--resume", path, "--out",
+                                 os.path.join(OUT, "wd_nan")])
+        raised = None
+    except watchdog.BlowupError as e:
+        raised = e.step
+    require(raised == 103, f"15e: the NaN run raised at {raised}, want 103 "
+            f"(the window of steps 96-103)")
+    print(f"checks after the windows ending at steps {checks} (25 windows "
+          f"of 8); a NaN in g raises BlowupError at step {raised}")
 
 
 def main(argv=None) -> int:
@@ -4170,6 +4556,13 @@ def main(argv=None) -> int:
         timed(phase_checkpoint_3d_cavity)
         timed(phase_checkpoint_real_size)
         timed(phase_profile_and_drift)
+    if run("15"):
+        os.environ["LBM_VIDEO_FORMAT"] = "avi"    # read back by read_frames
+        timed(phase_render)
+        timed(phase_golden_video)
+        timed(phase_cavity_video)
+        timed(phase_cavity_re)
+        timed(phase_watchdog_multistep)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())

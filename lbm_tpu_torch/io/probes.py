@@ -73,6 +73,7 @@ class ProbeRecorder:
 
     def __init__(self, NX: int, NY: int, device):
         xs, ys = probe_points(NX, NY)
+        self.points = list(zip(xs.tolist(), ys.tolist()))  # plot labels
         self.xs = torch.as_tensor(xs, device=device)
         self.ys = torch.as_tensor(ys, device=device)
         self._frames: List[torch.Tensor] = []
@@ -94,6 +95,34 @@ class ProbeRecorder:
             np.savetxt(os.path.join(out_dir, f"ts_{q}.csv"), arr,
                        delimiter=",",
                        header=",".join(f"p{i}" for i in range(arr.shape[1])))
+
+    def save_plots(self, out_dir: str, log=print) -> None:
+        """19 line plots plot_<q>.png, one per quantity, 9 series each
+        (lbm_tpu/io/probes.py:95-113; the reference renders these with
+        OpenCV, src/visualize.cpp:338-375). They need matplotlib; where it
+        is absent they are skipped with a message (the CSVs hold the same
+        series)."""
+        try:
+            import matplotlib
+        except ImportError:
+            log("probe plots skipped: matplotlib is absent (the ts_*.csv "
+                "series were written)")
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        os.makedirs(out_dir, exist_ok=True)
+        for q, arr in self.as_arrays().items():
+            fig, ax = plt.subplots(figsize=(8, 4.5), dpi=100)
+            for p in range(arr.shape[1]):
+                ax.plot(arr[:, p], lw=1,
+                        label="({},{})".format(*self.points[p]))
+            ax.set_xlabel("step")
+            ax.set_ylabel(q)
+            ax.legend(fontsize=6, ncol=3)
+            fig.tight_layout()
+            fig.savefig(os.path.join(out_dir, f"plot_{q}.png"))
+            plt.close(fig)
 
 
 class ShardedProbeRecorder(ProbeRecorder):

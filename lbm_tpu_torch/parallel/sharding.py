@@ -82,17 +82,34 @@ def shard_cavity_state(state, mesh: DeviceMesh):
     return _shard(state, mesh, CAVITY_FIELDS)
 
 
-def _gather(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """All-gather every rank's block of one array into the full array."""
+def _assemble(parts, mesh: DeviceMesh) -> torch.Tensor:
+    """The full array of every rank's block, parts in rank order."""
     ny, nx = mesh_shape(mesh)
+    t = parts[0]
     grid = _grid(t.shape[-2] * ny, t.shape[-1] * nx)
-    parts = [torch.empty_like(t) for _ in range(ny * nx)]
-    dist.all_gather([_wire(p) for p in parts], _wire(t.contiguous()))
     out = t.new_empty(t.shape[:-2] + (grid.NY, grid.NX))
     for r, p in enumerate(parts):
         rows, cols = block(grid, mesh, r)
         out[..., rows, cols] = p
     return out
+
+
+def _gather(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """All-gather every rank's block of one array into the full array."""
+    parts = [torch.empty_like(t) for _ in range(mesh.size())]
+    dist.all_gather([_wire(p) for p in parts], _wire(t.contiguous()))
+    return _assemble(parts, mesh)
+
+
+def gather_to_rank0(t: torch.Tensor, mesh: DeviceMesh):
+    """Every rank's block of one array (..., rows, cols), assembled in
+    mesh order on rank 0 (the others get None): one gather, no all-gather
+    (the video's uint8 tiles, which only rank 0 writes)."""
+    t = t.contiguous()
+    mine = dist.get_rank() == 0
+    parts = [torch.empty_like(t) for _ in range(mesh.size())] if mine else None
+    dist.gather(t, parts, dst=0)
+    return _assemble(parts, mesh) if mine else None
 
 
 def gather_state(state: PlasmaState, mesh: DeviceMesh) -> PlasmaState:

@@ -1,5 +1,4 @@
-"""Lid-driven cavity CLI of the port: scripts/run_cavity.py without its
-video.
+"""Lid-driven cavity CLI of the port (scripts/run_cavity.py).
 
 The classic validation workload (old codes/LBM_classic): Re=100, 129^2,
 u_lid=0.1, 10k steps, compared against Ghia et al. (1982) centerlines.
@@ -31,11 +30,22 @@ then <out>/final_state.npz; --resume PATH continues a checkpoint of either
 package (its storage layout reconciled with --storage; the grid must
 match, since tau depends on NY) toward --steps, the total trajectory
 length. --profile DIR writes a torch.profiler trace of the timed loop.
+Video (on unless --no-video): after every --video-every steps (default
+100; counted from the run's start) a frame of the JET colours of |u|^2,
+normalised by its own min and max (under --shard the global ones, by an
+all-reduce; rank 0 gathers the blocks' pixels), goes to
+<out>/cavity.mp4 (cv2), else <out>/cavity.avi (the native writer), else
+.gif, at 10 frames a second: the frame is rendered on the device and
+copied to the host without a wait, and a writer thread encodes it
+(io/video.FrameQueue). The run then marches in chunks that end at
+every multiple of either cadence (video, checkpoint); with --no-video the
+chunks are those of the checkpoint cadence alone.
 Writes the centerline CSVs and the reference-schema timing CSV
 (poisson=-1, bc=-1) to --out and prints the Ghia check at 129^2 and
 Re=100. main(argv) returns a summary dict (wall
 ms, MLUPS, each cavity kernel's launch count, the Ghia errors, finiteness,
-relative mass drift, the final state; under --shard the gathered state).
+relative mass drift, the video's path, the final state; under --shard
+the gathered state).
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ import torch.distributed as dist
 
 from .config import CavityConfig
 from .io import checkpoint as ckpt
-from .io import profile, timing
+from .io import colormap, profile, timing, video
 from .kernels import build, fused_cavity
 from .models import cavity
 from .parallel import fused_sharded, mesh as pmesh, sharding
@@ -96,6 +106,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed loop, "
                         "DIR/trace_rank<r>.json")
+    p.add_argument("--video-every", type=int, default=100, metavar="N",
+                   help="a |u|^2 video frame every N steps")
+    p.add_argument("--no-video", action="store_true",
+                   help="write no video (the chunks then follow "
+                        "--checkpoint-every alone)")
     return p.parse_args(argv)
 
 
@@ -164,15 +179,19 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
     start_step = state.step
     mass0 = _mass(cfg, state.f)
     # nsteps is the TOTAL trajectory length: a resumed run does the rest,
-    # in chunks of the checkpoint cadence
+    # in chunks of the checkpoint and video cadences
     target = max(cfg.nsteps - start_step, 0)
     every = args.checkpoint_every
     if every and cfg.multistep and every % cfg.multistep:
         log(f"--checkpoint-every {every} is not a multiple of --multistep "
             f"{cfg.multistep}: each chunk ends in a shorter window, so a "
             f"resumed run is not bitwise equal to a straight one")
-    chunk = min(every, target) if every else target
-    lengths = {k for k in {chunk, target % chunk if chunk else 0} if k}
+    video_every = 0 if args.no_video else args.video_every
+    if video_every and cfg.multistep and video_every % cfg.multistep:
+        log(f"--video-every {video_every} is not a multiple of --multistep "
+            f"{cfg.multistep}: each chunk ends in a shorter window")
+    chunks = chunk_lengths(target, [c for c in (every, video_every) if c])
+    lengths = set(chunks)
     if m is None:
         rolls = {k: cavity.make_rollout(cfg, k) for k in lengths}
     else:
@@ -196,16 +215,40 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
             print(f"checkpoint: {path}")
         return full
 
+    writer = None
+    if video_every and rank0:
+        writer = video.FrameQueue([video.open_writer(
+            os.path.join(args.out, "cavity.avi"), cfg.NX, cfg.NY, fps=10,
+            log=log)])
+
+    def frame(state):
+        """The video frame of `state` on rank 0 (None elsewhere): under
+        --shard each rank colours its rows with the global extrema and
+        rank 0 gathers them."""
+        if m is None:
+            return colormap.cavity_frame(state.ux, state.uy)
+        speed2 = colormap.speed2(state.ux, state.uy)
+        lo, hi = (t.clone() for t in torch.aminmax(speed2))
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        rgb = sharding.gather_to_rank0(
+            colormap.cavity_rgb(speed2, lo, hi).permute(2, 0, 1), m)
+        return (None if rgb is None
+                else torch.flip(rgb.permute(1, 2, 0), dims=(0,)))
+
     timer = timing.StepTimer(cfg.NX, cfg.NY)
     with profile.trace(args.profile, device, 0 if m is None
                        else dist.get_rank()):
         timer.start()
         done = 0
-        while done < target:
-            k = min(chunk, target - done)
+        for k in chunks:
             state = rolls[k](state)
             done += k
             timer.tick(k)
+            if video_every and done % video_every == 0:
+                rgb = frame(state)
+                if writer is not None:
+                    writer.put([rgb])
             if every and done % every == 0:
                 save(f"ckpt_{state.step:07d}.npz", state)
         if device.type == "cuda":
@@ -213,6 +256,8 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
         wall_ms = timer.wall_s * 1000
         mlups = timer.mlups
     launches = {k: n - launches0[k] for k, n in fused_cavity.LAUNCHES.items()}
+    if writer is not None:
+        writer.close()
     if every:
         state = save("final_state.npz", state)
     elif m is not None:
@@ -233,7 +278,9 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
                    dtype=str(cfg.dtype), lean=cfg.lean_macros,
                    multistep=cfg.multistep, n_devices=n_devices,
                    launches=launches, ghia=ghia, finite=finite,
-                   mass_drift=mass_drift, state=state)
+                   mass_drift=mass_drift,
+                   video=None if writer is None else writer.paths[0],
+                   state=state)
     if not rank0:
         return summary
     (yp, up), (xp, vp) = cavity.centerline_profiles(state, cfg.u_lid)
@@ -258,6 +305,17 @@ def _run(args: argparse.Namespace, cfg: CavityConfig,
           f"{mass_drift:.3e}; kernel launches "
           + ", ".join(f"{k} {n}" for k, n in launches.items()))
     return summary
+
+
+def chunk_lengths(target: int, cadences) -> list:
+    """The march's chunks: they end at every multiple of each cadence and
+    at the target (one chunk of the target without a cadence)."""
+    chunks, done = [], 0
+    while done < target:
+        stop = min([target] + [(done // c + 1) * c for c in cadences])
+        chunks.append(stop - done)
+        done = stop
+    return chunks
 
 
 def initial_state(args: argparse.Namespace, cfg: CavityConfig, device,

@@ -43,12 +43,24 @@ with <out>/final_state.npz; --resume PATH continues a checkpoint of either
 package (io/checkpoint: the JAX package's npz layout) toward --steps, the
 absolute target. Under --shard every rank loads the file and keeps its
 block, and rank 0 writes the gathered state. --watchdog-every N checks the
-state for non-finite values every N steps (the loop's step index t, at
-(t + 1) % N == 0, as the JAX CLI: under --multistep, t is a window's
-first step) and raises BlowupError; under --shard the flag is all-reduced
-first. --profile DIR writes a torch.profiler trace of the timed loop.
+state for non-finite values every N steps (per step at (t + 1) % N == 0,
+as the JAX CLI; under --multistep after each window that crosses a
+multiple of N, where the JAX CLI tests the window's first step alone and
+never checks under an even K and N) and raises BlowupError; under --shard
+the flag is all-reduced first. --profile DIR writes a torch.profiler
+trace of the timed loop.
+Video (on unless --no-video): the density, velocity and temperature
+frames of the pre-step macros whenever t % --video-every == 0 (under
+--multistep one frame a window, at window starts, as the JAX CLI samples),
+rendered on the device (io/colormap) and encoded on a host thread
+(io/video) into <out>/video/video_{density,velocity,temperature}: mp4v
+where cv2 is present, else the native AVI (g++), else GIF (PIL), each tile
+row under a 30-px label strip. Under --shard each rank renders the index
+tiles of its block and rank 0 gathers and assembles them. After the CSVs,
+<out>/graphs/plot_<q>.png (matplotlib; skipped with a message without it)
+unless --no-plots.
 main(argv) returns a summary dict (the probe series, on rank 0 under
---shard, and each kernel's launch count included).
+--shard, the video paths, and each kernel's launch count included).
 """
 from __future__ import annotations
 
@@ -61,7 +73,7 @@ import torch
 
 from . import config as C
 from .io import checkpoint as ckpt
-from .io import debug_dump, probes, profile, timing
+from .io import colormap, debug_dump, probes, profile, timing, video
 from .kernels import (collide_pallas, fft_tpu, fused_multistep, fused_step,
                       poisson_iter)
 from .models import plasma, plasma_staged
@@ -145,6 +157,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed loop, "
                         "DIR/trace_rank<r>.json")
+    p.add_argument("--no-video", action="store_true",
+                   help="write no field videos")
+    p.add_argument("--no-plots", action="store_true",
+                   help="write no probe plots (the CSVs stay)")
+    p.add_argument("--video-every", type=int, default=1, metavar="N",
+                   help="a video frame when the loop's step t is a "
+                        "multiple of N (0: none)")
     p.add_argument("--out", default=os.path.join("build", "output", "torch"))
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda, cuda:N or cpu")
@@ -269,6 +288,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                               torch.distributed.get_rank()))
     else:
         rollouts = {k: plasma.make_rollout(cfg, k) for k in lengths}
+    vid = None
+    if not args.no_video and args.video_every and rank0:
+        vid = video.VideoRecorder(os.path.join(args.out, "video"), cfg.NX,
+                                  cfg.NY, log=log)
+
+    def record_video(mac):
+        """This step's frames; under --shard every rank sends the tiles of
+        its block, and rank 0 assembles and records them."""
+        if m is None:
+            if vid is not None:
+                vid.record(mac)
+            return
+        panels = sharding.gather_to_rank0(
+            colormap.index_panels(*colormap.macro_fields(mac)), m)
+        if vid is not None:
+            vid.record_panels(panels)
+
     wd = (Watchdog(every=args.watchdog_every,
                    group=None if m is None else torch.distributed.group.WORLD)
           if args.watchdog_every else None)
@@ -310,14 +346,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 state = rollouts[k](state)
             timer.tick(k)
             if wd is not None:
-                state = wd.check(t, state)
+                state = wd.check(t, state, k)
             rec.record(mac, state.Ex, state.Ey)
+            if (not args.no_video and args.video_every
+                    and t % args.video_every == 0):
+                record_video(mac)
             if args.checkpoint_every and (t + k) % args.checkpoint_every == 0:
                 save(f"ckpt_{t + k:06d}.npz", state)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall_ms = timer.wall_s * 1000
         mlups = timer.mlups
+    if vid is not None:
+        vid.close()
     if dmp is not None:
         dmp.close()
     launches = {k: n - launches0[k] for k, n in launch_counts().items()}
@@ -333,6 +374,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     series = rec.as_arrays()
     if rank0:
         rec.save_csv(os.path.join(args.out, "graphs"))
+        if not args.no_plots:
+            rec.save_plots(os.path.join(args.out, "graphs"))
         timing.append_timing_csv(
             os.path.join(args.out, "simulation_time_plasma_details.csv"),
             NX=cfg.NX, NY=cfg.NY, nsteps=steps, n_devices=n_devices,
@@ -347,7 +390,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    multistep=cfg.multistep, n_devices=n_devices,
                    mesh=None if m is None else mesh_shape_of(m),
                    launches=launches, finite=finite, probes=series,
-                   state=state)
+                   video=None if vid is None else vid.paths, state=state)
     if not rank0:
         return summary
     print(f"Simulation ended: {cfg.NX}x{cfg.NY}, {steps} steps"

@@ -1,5 +1,5 @@
-"""3-D plasma column CLI of the port: scripts/run_plasma3d.py without its
-PNG slices (BASELINE config #5).
+"""3-D plasma column CLI of the port: scripts/run_plasma3d.py (BASELINE
+config #5).
 
     python scripts/run_plasma3d_torch.py                  # 64^2x64, 50 steps
     python scripts/run_plasma3d_torch.py --n 128 --nz 128 --storage bf16
@@ -17,8 +17,9 @@ kernel) on --device cuda, f32 with neutral-delta storage (--f64 turns it
 off). There is no silent CPU fallback: without a GPU, --device cuda raises;
 only an explicit --device cpu runs on the CPU, with the plain backend.
 --slice-every N writes the z-midplane rho_e and rho_q every N steps as
-slice_<step>.npz (PNG rendering waits for the port's io/colormap, ROADMAP
-Queue 1 item 13.3). The timing CSV row goes to <out>/simulation_time_3d.csv.
+slice_<step>.npz and, where matplotlib is present, as the JAX CLI's figure
+slice_<step>.png (rho_e, and rho_q in RdBu_r). The timing CSV row goes to
+<out>/simulation_time_3d.csv.
 --checkpoint-every N writes <out>/ckpt_<step>.npz whenever a step (a window
 end under --multistep) reaches a multiple of N, and every run ends with
 <out>/final_state.npz; --resume PATH continues a checkpoint of either
@@ -75,9 +76,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--f64", action="store_true", help="float64 parity mode")
     p.add_argument("--slice-every", type=int, default=10, metavar="N",
                    help="write the z-midplane rho_e and rho_q as "
-                        "slice_<step>.npz every N steps (0: never); PNG "
-                        "rendering waits for io/colormap (ROADMAP Queue 1 "
-                        "item 13.3)")
+                        "slice_<step>.npz, and slice_<step>.png where "
+                        "matplotlib is present, every N steps (0: never)")
     p.add_argument("--out", default=os.path.join("build", "output",
                                                  "torch_3d"))
     p.add_argument("--device", default="cuda",
@@ -141,9 +141,26 @@ def write_slice(path: str, cfg: C.PlasmaConfig,
     contracts (bf16 upcast, delta neutrals read with neutral_ref)."""
     mac = plasma3d.compute_macros(cfg, state)
     zmid = cfg.NZ // 2
-    np.savez(path, step=state.step,
-             rho_e=mac.rho[0, zmid].double().cpu().numpy(),
-             rho_q=mac.rho_q[zmid].double().cpu().numpy())
+    rho_e = mac.rho[0, zmid].double().cpu().numpy()
+    rho_q = mac.rho_q[zmid].double().cpu().numpy()
+    np.savez(path, step=state.step, rho_e=rho_e, rho_q=rho_q)
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    # the figure of scripts/run_plasma3d.py:202-212
+    fig, axes = plt.subplots(1, 2, figsize=(9, 4), dpi=100)
+    im = axes[0].imshow(rho_e, origin="lower")
+    fig.colorbar(im, ax=axes[0], label="rho_e")
+    im = axes[1].imshow(rho_q, origin="lower", cmap="RdBu_r")
+    fig.colorbar(im, ax=axes[1], label="rho_q")
+    fig.suptitle(f"z-midplane, step {state.step}")
+    fig.tight_layout()
+    fig.savefig(os.path.splitext(path)[0] + ".png")
+    plt.close(fig)
 
 
 def launch_counts() -> dict:

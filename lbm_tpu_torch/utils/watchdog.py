@@ -59,6 +59,14 @@ class Watchdog:
     >>> for t in range(nsteps):
     ...     state = step(state)
     ...     state = wd.check(t, state)   # may raise or roll back
+
+    A loop that advances k steps at a time (K-step windows) passes the
+    window's first step t and its length k: the check runs when the step
+    count crosses a multiple of `every` inside the window, some t + j with
+    1 <= j <= k. For k = 1 that is the JAX package's test,
+    (t + 1) % every == 0; its CLI passes only t, so under an even K with an
+    even cadence it never checks. A BlowupError names the window's last
+    step, t + k - 1 (t itself per step).
     """
 
     def __init__(self, every: int = 100, keep_snapshot: bool = False,
@@ -72,15 +80,15 @@ class Watchdog:
         self._good = None
         self._good_step: Optional[int] = None
 
-    def check(self, t: int, state):
-        if (t + 1) % self.every:
+    def check(self, t: int, state, k: int = 1):
+        if (t + k) // self.every <= t // self.every:
             return state
         if state_is_finite(state, self.group):
             if self.keep_snapshot:
                 self._good = _copy(state)
-                self._good_step = t
+                self._good_step = t + k - 1
             return state
         if self.on_blowup == "rollback" and self._good is not None:
             # hand out a copy, so that a second rollback still has one
             return _copy(self._good)
-        raise BlowupError(t, "simulation state")
+        raise BlowupError(t + k - 1, "simulation state")

@@ -202,7 +202,8 @@ def test_fused_collide_refuses_non_cpu_tensors():
 def test_cli_runs_sor_bounceback_on_cpu(tmp_path):
     summary = run_plasma.main([
         "--device", "cpu", "--nx", "32", "--ny", "24", "--steps", "3",
-        "--poisson", "SOR", "--bc", "bounceback", "--out", str(tmp_path)])
+        "--poisson", "SOR", "--bc", "bounceback", "--no-video", "--no-plots",
+        "--out", str(tmp_path)])
     assert summary["finite"] and summary["steps"] == 3
     assert (summary["poisson"], summary["bc"]) == ("SOR", "BOUNCE_BACK")
     assert summary["launches"] == {"collide_stream": 0, "fused_collide": 0,

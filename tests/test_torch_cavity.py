@@ -351,7 +351,7 @@ def test_interop_round_trip_is_bitwise():
 
 def test_cli_on_cpu(tmp_path):
     out = run_cavity.main(["--device", "cpu", "--nx", "17", "--steps", "5",
-                           "--out", str(tmp_path)])
+                           "--no-video", "--out", str(tmp_path)])
     assert out["steps"] == 5 and out["finite"] and out["backend"] == "plain"
     assert out["launches"] == dict.fromkeys(tfc.LAUNCHES, 0)
     assert out["ghia"] is None and out["mass_drift"] < 1e-5

@@ -346,7 +346,8 @@ PLASMA_CLI = [("f64", ["--f64"]), ("bf16", ["--storage", "bf16"]),
 @pytest.mark.parametrize("label, flags", PLASMA_CLI,
                          ids=[c[0] for c in PLASMA_CLI])
 def test_plasma_cli_resume_is_bitwise(tmp_path, capsys, label, flags):
-    base = ["--device", "cpu", "--nx", "16", "--ny", "16", *flags]
+    base = ["--device", "cpu", "--nx", "16", "--ny", "16", "--no-video",
+            "--no-plots", *flags]
     a = run_plasma.main(base + ["--steps", "6", "--out", str(tmp_path / "a")])
     run_plasma.main(base + ["--steps", "4", "--checkpoint-every", "2",
                             "--out", str(tmp_path / "b")])
@@ -369,7 +370,8 @@ def test_plasma_cli_resume_is_bitwise(tmp_path, capsys, label, flags):
 
 def test_plasma_cli_step_accounting(tmp_path, capsys):
     """--steps is an absolute target (tests/test_cli3d.py's accounting)."""
-    base = ["--device", "cpu", "--nx", "16", "--ny", "16", "--steps", "3"]
+    base = ["--device", "cpu", "--nx", "16", "--ny", "16", "--steps", "3",
+            "--no-video", "--no-plots"]
     out = str(tmp_path / "run")
     run_plasma.main(base + ["--checkpoint-every", "2", "--out", out])
     assert "16x16, 3 steps" in capsys.readouterr().out
@@ -388,7 +390,8 @@ def test_plasma_cli_step_accounting(tmp_path, capsys):
 
 
 def test_plasma_cli_refuses_what_it_cannot_resume(tmp_path):
-    base = ["--device", "cpu", "--nx", "16", "--ny", "16", "--steps", "2"]
+    base = ["--device", "cpu", "--nx", "16", "--ny", "16", "--steps", "2",
+            "--no-video", "--no-plots"]
     arrays = plasma_arrays((16, 16), "f32", "native", True, seed=41)
     old = str(tmp_path / "old.npz")
     ckpt.save(old, interop.state_from_numpy(arrays, "cpu"))
@@ -427,7 +430,7 @@ def test_plasma3d_cli_resume_and_accounting(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [[], ["--storage", "bf16"], ["--f64"]],
                          ids=["f32", "bf16", "f64"])
 def test_cavity_cli_resume_is_bitwise(tmp_path, flags):
-    base = ["--device", "cpu", "--nx", "16", *flags]
+    base = ["--device", "cpu", "--nx", "16", "--no-video", *flags]
     run_cavity.main(base + ["--steps", "20", "--checkpoint-every", "20",
                             "--out", str(tmp_path / "a")])
     run_cavity.main(base + ["--steps", "12", "--checkpoint-every", "6",
@@ -449,9 +452,10 @@ def test_cavity_cli_resume_is_bitwise(tmp_path, flags):
 def test_cavity_cli_resumes_bf16_into_f64_and_refuses_another_grid(tmp_path):
     b = str(tmp_path / "b")
     run_cavity.main(["--device", "cpu", "--nx", "16", "--storage", "bf16",
-                     "--steps", "4", "--checkpoint-every", "4", "--out", b])
+                     "--steps", "4", "--checkpoint-every", "4", "--no-video",
+                     "--out", b])
     s = run_cavity.main(["--device", "cpu", "--nx", "16", "--f64",
-                         "--steps", "6", "--resume",
+                         "--no-video", "--steps", "6", "--resume",
                          os.path.join(b, "final_state.npz"),
                          "--out", str(tmp_path / "c")])
     assert s["state"].f.dtype == torch.float64 and s["finite"]
@@ -477,6 +481,7 @@ def test_jax_checkpoint_resumed_by_the_port_meets_jax(tmp_path):
         state = step(state)
     s = run_plasma.main(["--device", "cpu", "--nx", "16", "--ny", "16",
                          "--f64", "--steps", "4", "--resume", path,
+                         "--no-video", "--no-plots",
                          "--out", str(tmp_path / "port")])
     assert s["start_step"] == 2 and s["state"].step == 4
     for k in ("f", "g", "Ex", "Ey", "phi"):
@@ -496,6 +501,7 @@ def test_sharded_clis_resume_bitwise_on_two_ranks(tmp_path):
     assert res["blowup_steps"] == [1, 1]
     single = run_plasma.main(["--device", "cpu", "--nx", "32", "--ny", "32",
                               "--multistep", "2", "--poisson", "NONE",
-                              "--steps", "6", "--out", str(tmp_path / "one")])
+                              "--steps", "6", "--no-video", "--no-plots",
+                              "--out", str(tmp_path / "one")])
     _assert_bitwise(res["plasma_windows"]["_a"], single["state"],
                     jplasma.PlasmaState._fields)

@@ -160,7 +160,7 @@ def test_cli_debug_dump_matches_cpp_reference(tmp_path):
     summary = run_plasma.main(
         ["--device", "cpu", "--f64", "--nx", "8", "--ny", "8", "--steps",
          "5", "--poisson", "FFT", "--debug-variant", "--debug-dump",
-         "--out", str(out)])
+         "--no-video", "--no-plots", "--out", str(out)])
     assert summary["finite"] and summary["backend"] == "plain"
     assert summary["state"].step == 5
     mine = parse_dump(str(out / "debug_dump.txt"))

@@ -209,7 +209,8 @@ def test_cli_multistep_on_cpu(tmp_path):
     macros before it, E after it), no kernel launches on the CPU."""
     summary = run_plasma.main([
         "--device", "cpu", "--nx", "16", "--ny", "12", "--steps", "10",
-        "--multistep", "4", "--out", str(tmp_path)])
+        "--multistep", "4", "--no-video", "--no-plots", "--out",
+        str(tmp_path)])
     assert summary["finite"] and summary["steps"] == 10
     assert summary["state"].step == 10
     assert (summary["backend"], summary["multistep"]) == ("fused", 4)

@@ -131,7 +131,8 @@ def test_golden_probe_series_match_cpp_reference(tmp_path):
     window; same alignment and gate as the JAX package's test."""
     ref = _parse_probe_fixture(FIXTURE)
     summary = run_plasma.main(["--preset", "golden", "--f64", "--device",
-                               "cpu", "--out", str(tmp_path)])
+                               "cpu", "--no-video", "--no-plots", "--out",
+                               str(tmp_path)])
     assert summary["steps"] == 200 and summary["finite"]
     for k in ref:
         got = summary["probes"][k]

@@ -180,7 +180,8 @@ def test_ring_shift_and_cli_on_two_ranks(tmp_path):
     assert out["launches"]["collide_stream_halo"] == 0   # plain on the CPU
     single = run_plasma.main([
         "--device", "cpu", "--nx", "32", "--ny", "32", "--steps", "3",
-        "--f64", "--poisson", "FFT", "--out", str(tmp_path / "single")])
+        "--f64", "--poisson", "FFT", "--no-video", "--no-plots", "--out",
+        str(tmp_path / "single")])
     for q, want in single["probes"].items():
         got = out["probes"][q]
         assert got.shape == want.shape == (3, 9), q

@@ -98,7 +98,7 @@ def test_cli_watchdog_raises_at_its_first_check(tmp_path):
     checkpoint.save(path, s._replace(g=g), neutral_delta=False,
                     storage="native")
     base = ["--device", "cpu", "--nx", "8", "--ny", "8", "--f64", "--steps",
-            "4", "--resume", path]
+            "4", "--resume", path, "--no-video", "--no-plots"]
     with pytest.raises(watchdog.BlowupError) as e:
         run_plasma.main(base + ["--watchdog-every", "2",
                                 "--out", str(tmp_path / "a")])
@@ -106,3 +106,60 @@ def test_cli_watchdog_raises_at_its_first_check(tmp_path):
     out = run_plasma.main(base + ["--watchdog-every", "0",
                                   "--out", str(tmp_path / "b")])
     assert out["steps"] == 4 and not out["finite"]
+
+
+def _checks(every, k, steps):
+    """The window starts t at which Watchdog(every).check(t, bad, k)
+    checks, over `steps` steps in windows of k."""
+    wd = watchdog.Watchdog(every=every)
+    bad = _state(with_nan=True)
+    fired = []
+    for t in range(0, steps, k):
+        try:
+            wd.check(t, bad, min(k, steps - t))
+        except watchdog.BlowupError as e:
+            assert e.step == t + min(k, steps - t) - 1
+            fired.append(t)
+    return fired
+
+
+@pytest.mark.parametrize("every", [1, 2, 3, 10, 100])
+def test_per_step_checks_are_the_jax_cadence(every):
+    """k = 1 checks exactly where the JAX package's (t + 1) % every == 0
+    does."""
+    assert _checks(every, 1, 250) == [t for t in range(250)
+                                      if (t + 1) % every == 0]
+
+
+@pytest.mark.parametrize("every, k, steps, want", [
+    (4, 2, 10, [2, 6]),           # windows [2, 4), [6, 8) reach 4 and 8
+    (100, 8, 200, [96, 192]),     # the golden --multistep 8 run
+    (100, 1, 200, [99, 199]),
+    (3, 2, 9, [2, 4, 8]),         # odd cadence: 3, 6 and 9 crossed
+    (10, 4, 10, [8]),             # a short last window that reaches 10
+])
+def test_windows_check_where_they_cross_the_cadence(every, k, steps, want):
+    """A window [t, t + k) is checked when t + j, 1 <= j <= k, is a
+    multiple of every. The rule before the repair, (t + 1) % every == 0 on
+    the window's first step, never fires under an even k and cadence."""
+    assert _checks(every, k, steps) == want
+    if k % 2 == 0 and every % 2 == 0:
+        assert not any((t + 1) % every == 0 for t in range(0, steps, k))
+
+
+def test_cli_watchdog_checks_under_even_multistep(tmp_path):
+    """--multistep 2 --watchdog-every 4 on a state holding a NaN: the
+    window [2, 4) reaches step 4 and raises (its last step, 3)."""
+    s = _state()
+    g = s.g.clone()
+    g[0, 0, 3, 3] = float("nan")
+    path = str(tmp_path / "nan.npz")
+    checkpoint.save(path, s._replace(g=g), neutral_delta=False,
+                    storage="native")
+    with pytest.raises(watchdog.BlowupError) as e:
+        run_plasma.main(["--device", "cpu", "--nx", "8", "--ny", "8",
+                         "--f64", "--steps", "8", "--multistep", "2",
+                         "--watchdog-every", "4", "--resume", path,
+                         "--no-video", "--no-plots",
+                         "--out", str(tmp_path / "a")])
+    assert e.value.step == 3

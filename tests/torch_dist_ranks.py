@@ -1,7 +1,7 @@
 """Rank bodies of tests/test_torch_sharded.py,
 tests/test_torch_cavity_sharded.py, tests/test_torch_sharded3d.py,
-tests/test_torch_multistep_sharded.py and tests/test_torch_checkpoint.py
-(not collected), and spawn(), which runs them.
+tests/test_torch_multistep_sharded.py, tests/test_torch_checkpoint.py and
+tests/test_torch_video.py (not collected), and spawn(), which runs them.
 
     python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
 
@@ -112,8 +112,8 @@ def ring_and_cli(out_dir: str) -> None:
         refused = str(e)
     summary = run_plasma.main([
         "--device", "cpu", "--shard", "2", "--nx", "32", "--ny", "32",
-        "--steps", "3", "--f64", "--poisson", "FFT", "--out",
-        os.path.join(out_dir, "cli")])
+        "--steps", "3", "--f64", "--poisson", "FFT", "--no-video",
+        "--no-plots", "--out", os.path.join(out_dir, "cli")])
     if r == 0:
         torch.save({"received": received, "refused": refused,
                     "probes": summary["probes"], "mesh": summary["mesh"],
@@ -141,7 +141,8 @@ CAVITY_CASES = {
 }
 # the sharded cavity CLI's runs on two ranks: (label, extra flags)
 CAVITY_CLI = [("stored", []), ("multistep", ["--multistep", "4"])]
-CAVITY_CLI_ARGS = ["--device", "cpu", "--nx", "32", "--steps", "30", "--f64"]
+CAVITY_CLI_ARGS = ["--device", "cpu", "--nx", "32", "--steps", "30", "--f64",
+                   "--no-video"]
 
 
 def cavity_config(NY, NX, dtype, storage, path, K) -> CavityConfig:
@@ -328,7 +329,7 @@ WINDOW_CASES = {
 # the windowed CLI on two ranks, and a K beyond a shard's 16 rows
 WINDOW_CLI = ["--device", "cpu", "--multistep", "4", "--nx", "32", "--ny",
               "32", "--steps", "10", "--bc", "bounceback", "--poisson",
-              "NONE", "--f64"]
+              "NONE", "--f64", "--no-video", "--no-plots"]
 
 
 def window_config(NY, NX, solver, bc, dtype, storage, delta, kill
@@ -403,13 +404,16 @@ def checkpoint_runs(out_dir: str) -> None:
     from lbm_tpu_torch.io import checkpoint
     from lbm_tpu_torch.utils.watchdog import BlowupError
 
+    # no videos or plots: these runs test checkpoints
+    quiet = {"plasma": ["--no-video", "--no-plots"], "cavity": ["--no-video"],
+             "plasma3d": []}
     clis = {"plasma": (run_plasma.main, checkpoint.load),
             "cavity": (run_cavity.main, checkpoint.load_cavity),
             "plasma3d": (run_plasma3d.main, checkpoint.load3d)}
     results = {}
     for label, cli, flags, steps, at in CHECKPOINT_CLI:
         main, load = clis[cli]
-        base = ["--device", "cpu", "--shard", "2", *flags]
+        base = ["--device", "cpu", "--shard", "2", *quiet[cli], *flags]
         every = ["--checkpoint-every", str(at)]
         run = os.path.join(out_dir, label)
         main(base + ["--steps", str(steps), *every, "--out", run + "_a"])
@@ -434,8 +438,8 @@ def checkpoint_runs(out_dir: str) -> None:
     try:
         run_plasma.main(["--device", "cpu", "--shard", "2", "--nx", "32",
                          "--ny", "32", "--f64", "--poisson", "NONE",
-                         "--steps", "5", "--resume",
-                         path, "--watchdog-every", "2", "--out",
+                         "--steps", "5", "--resume", path, "--no-video",
+                         "--no-plots", "--watchdog-every", "2", "--out",
                          os.path.join(out_dir, "nan")])
         raised = None
     except BlowupError as e:
@@ -447,9 +451,40 @@ def checkpoint_runs(out_dir: str) -> None:
         torch.save(results, os.path.join(out_dir, "result.pt"))
 
 
+# the video runs on two ranks (and on one, in the test): the plasma CLI
+# without a solve (the sharded step is then bitwise the single-device one)
+# and the cavity CLI, both through the native AVI writer
+VIDEO_PLASMA = ["--device", "cpu", "--nx", "32", "--ny", "32", "--steps",
+                "3", "--f64", "--poisson", "NONE", "--no-plots"]
+VIDEO_CAVITY = ["--device", "cpu", "--nx", "32", "--steps", "60",
+                "--video-every", "20"]
+
+
+def video_runs(out_dir: str) -> None:
+    """The plasma and cavity CLIs with --shard 2 and their videos on; rank
+    0 saves the frames as read back from its AVIs."""
+    from lbm_tpu_torch import run_cavity, run_plasma
+    from lbm_tpu_torch.io.avi import read_frames
+
+    os.environ["LBM_VIDEO_FORMAT"] = "avi"
+    plasma = run_plasma.main([*VIDEO_PLASMA, "--shard", "2", "--out",
+                              os.path.join(out_dir, "plasma")])
+    cav = run_cavity.main([*VIDEO_CAVITY, "--shard", "2", "--out",
+                           os.path.join(out_dir, "cavity")])
+    if dist.get_rank() == 0:
+        torch.save({"plasma": {k: read_frames(p)
+                               for k, p in plasma["video"].items()},
+                    "cavity": read_frames(cav["video"]),
+                    "mesh": plasma["mesh"]},
+                   os.path.join(out_dir, "result.pt"))
+    else:
+        assert plasma["video"] is None and cav["video"] is None
+
+
 SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli,
              "cavity": cavity_runs, "column": column_runs,
-             "windows": window_runs, "checkpoint": checkpoint_runs}
+             "windows": window_runs, "checkpoint": checkpoint_runs,
+             "video": video_runs}
 
 
 def main(argv) -> None:
