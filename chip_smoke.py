@@ -261,6 +261,19 @@ phase fails:
   15e. the watchdog under --multistep 8 --watchdog-every 100 checks the
      windows that cross steps 100 and 200, and a NaN in a resumed state
      raises at the first of them.
+  16. the sharded plain steps (parallel/sharding) on a one-rank NCCL group
+     and a (1, 1) mesh, every exchange the block's own wrap: make_sharded_step
+     at 2048^2 f32 for 3 steps under SOR + bounce-back, GS + bounce-back and
+     NPS periodic (200 sweeps a solve), with the collide-only kernel
+     (backend "fused"; 3 launches, counts reset just before), bitwise equal
+     to the single-device pallas step with the plain sweeps
+     (iter_engine="xla") and its sweep counts; NONE + bounce-back in bf16 +
+     delta (the plain collide: the kernel has no bf16 mode) bitwise equal
+     to the single-device plain step; ms a step of each beside the
+     single-device step's, with the card's name and power limit;
+     make_sharded_cavity_step at Ghia's 129^2, Re = 100, 10,000 steps,
+     bitwise equal to the single-device plain step and within the Ghia
+     gate, ms a step of each.
 The earlier phases pass --no-video (and --no-plots) to the 2-D and cavity
 CLIs, so that their times and launch counts are those of the runs alone.
 Phase 3 also holds collide_stream at the fused_split shapes (64x8192 f32,
@@ -273,7 +286,9 @@ kernel its launch count on its CLI run (phase 4, 4b, 6b, 7b or 8b, counts
 reset before the run; 9b's step run for the spectral solve; 10b's 2048^2
 FFT runs for the halo kernels; 11b's 128^2 runs for the cavity's y-shard
 kernels; 12b's 64^3 f32 + delta NONE runs for the 3-D halo kernel in its
-three roles; 13b's torchrun CLI for the gated window), its worst
+three roles; 13b's torchrun CLI for the gated window; fused_collide
+also its launches in phase 16's sharded runs, "launches_sharded"), its
+worst
 error against its plain version, its time beside the plain version's,
 beside its bound and, where one PyTorch call computes the same function,
 beside that call's (library_ms), at the main path's shapes. The last line is {"ok": true, "device": {...}}; with --only, no
@@ -4476,13 +4491,136 @@ def phase_watchdog_multistep():
           f"of 8); a NaN in g raises BlowupError at step {raised}")
 
 
+# phase 16: the sharded plain steps (parallel/sharding) on a (1, 1) mesh:
+# (label, solver, bc, storage); bf16 storage collides with the plain ops
+# (the collide-only kernel has no bf16 mode), against the single-device
+# plain step
+PLAIN_SHARDED = [("SOR + bounce-back", "SOR", "BOUNCE_BACK", "native"),
+                 ("GS + bounce-back", "GS", "BOUNCE_BACK", "native"),
+                 ("NPS periodic", "NPS", "PERIODIC", "native"),
+                 ("NONE + bounce-back bf16 + delta", "NONE", "BOUNCE_BACK",
+                  "bf16")]
+PLAIN_SHARDED_N = 2048
+PLAIN_SHARDED_STEPS = 3
+# the iterative solves' cap: 5,000 plain sweeps a step at 2048^2, host-synced
+# each, would take minutes; the sweeps run to the cap (f32, tol 1e-8)
+PLAIN_SHARDED_SWEEPS = 200
+
+
+def phase_sharded_plain():
+    """Phase 16: make_sharded_step and make_sharded_cavity_step on a
+    one-rank NCCL group and a (1, 1) mesh (every exchange is the block's
+    own wrap). Returns the collide-only kernel's launches in the sharded
+    runs (counts reset just before each, read just after)."""
+    import torch
+    import torch.distributed as dist
+    from lbm_tpu_torch.config import (BC, CavityConfig, PlasmaConfig,
+                                      PoissonSolver)
+    from lbm_tpu_torch.kernels import (collide_pallas, fused_step,
+                                       poisson_iter)
+    from lbm_tpu_torch.models import cavity, plasma
+    from lbm_tpu_torch.ops import poisson
+    from lbm_tpu_torch.parallel import mesh as pmesh
+    from lbm_tpu_torch.parallel import sharding
+
+    n, steps = PLAIN_SHARDED_N, PLAIN_SHARDED_STEPS
+    print(f"== phase 16: the sharded plain steps on a one-rank NCCL group, "
+          f"(1, 1) mesh ({card_line()})")
+    device = _one_rank_group("plain")
+    launches = 0
+    try:
+        m = pmesh.make_mesh((1, 1), "cuda")
+        for label, solver, bc, storage in PLAIN_SHARDED:
+            bf16 = storage == "bf16"
+            cfg = PlasmaConfig(NX=n, NY=n, dtype=torch.float32,
+                               storage=storage, neutral_delta=bf16,
+                               poisson=PoissonSolver[solver], bc=BC[bc],
+                               backend="plain" if bf16 else "pallas",
+                               iter_engine="xla",
+                               poisson_max_iter=PLAIN_SHARDED_SWEEPS)
+            runs, sweeps = {}, {}
+            for name, step in (
+                    ("single", plasma.make_step(cfg)),
+                    ("sharded", sharding.make_sharded_step(
+                        dataclasses.replace(cfg, backend="fused"), m))):
+                state = plasma.init_state(cfg, device)
+                _reset_launches()
+                per_step = []
+
+                def counted(s, step=step):
+                    s = step(s)
+                    per_step.append(poisson.LAST_SWEEPS)
+                    return s
+
+                state, ms = _window(counted, state, 1, steps - 1)
+                runs[name] = (state, ms)
+                sweeps[name] = per_step
+                if name == "sharded":
+                    got = collide_pallas.LAUNCHES
+                    require(got == (0 if bf16 else steps)
+                            and fused_step.LAUNCHES == 0
+                            and poisson_iter.LAUNCHES == 0,
+                            f"{label}: sharded step launched fused_collide "
+                            f"{got}, collide_stream {fused_step.LAUNCHES}, "
+                            f"solve_iter {poisson_iter.LAUNCHES} times")
+                    launches += got
+            (single, single_ms), (sharded, sharded_ms) = (runs["single"],
+                                                           runs["sharded"])
+            for k in ("f", "g", "Ex", "Ey", "phi"):
+                require(torch.equal(getattr(sharded, k), getattr(single, k)),
+                        f"{label}: sharded {k} not bitwise equal to the "
+                        f"single-device step")
+            require(all(bool(torch.isfinite(t.float()).all())
+                         for t in (sharded.f, sharded.g, sharded.Ex)),
+                    f"{label}: state not finite")
+            if solver != "NONE":
+                require(sweeps["sharded"] == sweeps["single"],
+                        f"{label}: sweeps {sweeps}")
+            swept = (f" (sweeps {sweeps['sharded']})" if solver != "NONE"
+                     else "")
+            print(f"{n}^2 {label}, {steps} steps: bitwise equal to the "
+                  f"single-device {cfg.backend} step{swept}; "
+                  f"{sharded_ms:.3f} ms/step sharded, "
+                  f"{single_ms:.3f} single-device, over the last "
+                  f"{steps - 1}; fused_collide launches "
+                  f"{0 if bf16 else steps}")
+            del runs, single, sharded
+
+        cfg = CavityConfig()
+        cav = {}
+        for name, step in (("single", cavity.make_step(cfg)),
+                           ("sharded",
+                            sharding.make_sharded_cavity_step(cfg, m))):
+            state = cavity.init_state(cfg, device)
+            state, ms = _window(step, state, 0, cfg.nsteps)
+            cav[name] = (state, ms)
+        (single, single_ms), (sharded, sharded_ms) = (cav["single"],
+                                                       cav["sharded"])
+        for k in ("f", "rho", "ux", "uy"):
+            require(torch.equal(getattr(sharded, k), getattr(single, k)),
+                    f"cavity: sharded {k} not bitwise equal to the "
+                    f"single-device plain step")
+        g = cavity.ghia_errors(sharded, cfg.u_lid)
+        for key, gate in GHIA_GATE.items():
+            require(g[key] < gate, f"sharded cavity: Ghia {key} "
+                    f"{g[key]:.4f} >= {gate}")
+        print(f"cavity {cfg.NX}^2 Re 100 f32, {cfg.nsteps} steps: bitwise "
+              f"equal to the single-device plain step; Ghia u max "
+              f"{g['u_max']:.4f} rms {g['u_rms']:.4f}, v max "
+              f"{g['v_max']:.4f} rms {g['v_rms']:.4f}; {sharded_ms:.4f} "
+              f"ms/step sharded, {single_ms:.4f} single-device")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of lbm_tpu_torch "
                                  "on one NVIDIA GPU (see the module doc).")
     ap.add_argument("--only", default=None,
-                    metavar="3,4,5,6,7,8,9,10,11,12,13,14",
+                    metavar="3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="run phases 1-2 and these phases only (no kernels "
                          "line, no ok line)")
     args = ap.parse_args(argv)
@@ -4563,6 +4701,8 @@ def main(argv=None) -> int:
         timed(phase_cavity_video)
         timed(phase_cavity_re)
         timed(phase_watchdog_multistep)
+    if run("16"):
+        launches["fused_collide_sharded"] = timed(phase_sharded_plain)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
     if only is not None:
         print(card_line())
@@ -4611,6 +4751,10 @@ def main(argv=None) -> int:
             "max_abs_err": err, "max_abs_err_at": err_at, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "ms_at": at})
+        if name == "fused_collide":
+            # its launches on phase 16's path, the sharded plain step
+            kernels[-1]["launches_sharded"] = launches[
+                "fused_collide_sharded"]
     ms, plain_ms, bound, bound_by, library_ms, at = fft_times
     kernels.append({
         "name": "solve_fft_efield_tpu", "route": "cuda",

@@ -31,7 +31,7 @@ from ..kernels.fused_step import collide_reference, collide_stream
 from ..ops import poisson as poisson_ops
 from ..ops import stream as stream_ops
 from ..ops.macros import Macros, update_macro
-from ..ops.stream import stream_bounceback, stream_periodic
+from ..ops.stream import stream_periodic
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -286,46 +286,66 @@ def make_step(cfg: PlasmaConfig) -> Callable[[PlasmaState], PlasmaState]:
         return PlasmaState(f=f, g=g, Ex=Ex, Ey=Ey, phi=phi,
                            step=state.step + 1)
 
-    # update_macro + collide in cfg.dtype (bf16 storage: the kernel's
-    # partial-fraction thermal algebra), or the collide-only kernel
-    if cfg.backend == "pallas":
+    if cfg.backend == "fused":
+        return fused_step
+
+    def stream(f_post, g_post, f_holes, g_holes):
+        return tuple(stream_periodic(p) if h is None
+                     else stream_ops.bounceback_from_periodic(
+                         stream_periodic(p), h)
+                     for p, h in ((f_post, f_holes), (g_post, g_holes)))
+
+    return plain_step(cfg, cfg.backend == "pallas", stream, _solve_poisson)
+
+
+def plain_step(cfg: PlasmaConfig, collide_kernel: bool, stream: Callable,
+               solve: Callable) -> Callable[[PlasmaState], PlasmaState]:
+    """The plain step around its streaming and its solve, which the
+    single-device step (make_step) and the sharded one
+    (parallel/sharding.make_sharded_step) give it: update_macro + collide
+    in cfg.dtype (bf16 storage: the kernel's partial-fraction thermal
+    algebra), or with collide_kernel the collide-only kernel; then
+    stream(f_post, g_post, f_holes, g_holes) -> (f, g), the holes None
+    under periodic walls; then solve(cfg, rho_q, phi, Ex, Ey) -> (Ex, Ey,
+    phi). bf16 storage rounds once, at the final write."""
+    u = cfg.units()
+    periodic = cfg.bc == BC.PERIODIC
+    neutral_ref = u.rho_n_init if cfg.neutral_delta else 0.0
+    debug_variant = cfg.compat.debug_variant
+    phys = dict(taus=cfg.taus, q_e=u.q_e, q_i=u.q_i, m_e=u.m_e, m_i=u.m_i,
+                cs2=u.cs2, kb=u.kb, neutral_ref=neutral_ref)
+    if collide_kernel:
         collide_stage, stage_kw = fused_collide, phys
     else:
         collide_stage = collide_reference
         stage_kw = dict(phys, guard_vals=guard_values(cfg))
 
-    def plain_step(state: PlasmaState) -> PlasmaState:
+    def step(state: PlasmaState) -> PlasmaState:
         f_post, g_post, rho_q = collide_stage(state.f, state.g, state.Ex,
                                               state.Ey, **stage_kw)
-        if periodic:
-            f = stream_periodic(f_post)
-            g = stream_periodic(g_post)
-        else:
+        f_holes = g_holes = None
+        if not periodic:
             # The reference's recycled temp buffers leak stale values into
             # the corner holes: pre-collision f for the f-streaming,
             # post-collision f for the g-streaming (ops/stream.py). The
             # debug build has its own g temp buffers, so its g holes keep
             # the pre-collision g.
-            f = stream_bounceback(f_post, stale=state.f.to(cfg.dtype))
-            if debug_variant:
-                g = stream_bounceback(g_post, stale=state.g.to(cfg.dtype))
-            else:
-                g_holes = _g_holes_with_background(
-                    stream_ops.hole_values(f_post), neutral_ref)
-                g = stream_ops.bounceback_from_periodic(
-                    stream_periodic(g_post), g_holes)
-        Ex, Ey, phi = _solve_poisson(cfg, rho_q, state.phi, state.Ex,
-                                     state.Ey)
+            f_holes = stream_ops.hole_values(state.f.to(cfg.dtype))
+            g_holes = (stream_ops.hole_values(state.g.to(cfg.dtype))
+                       if debug_variant else _g_holes_with_background(
+                           stream_ops.hole_values(f_post), neutral_ref))
+        f, g = stream(f_post, g_post, f_holes, g_holes)
+        Ex, Ey, phi = solve(cfg, rho_q, state.phi, state.Ex, state.Ey)
         if debug_variant and state.step == 0:
             # the "pulsed" external field: zeroed at the end of step 0
             Ex, Ey = torch.zeros_like(Ex), torch.zeros_like(Ey)
-        if storage_bf16:
+        if cfg.storage == "bf16":
             f = f.to(torch.bfloat16)
             g = g.to(torch.bfloat16)
         return PlasmaState(f=f, g=g, Ex=Ex, Ey=Ey, phi=phi,
                            step=state.step + 1)
 
-    return fused_step if cfg.backend == "fused" else plain_step
+    return step
 
 
 def _iter_spec(cfg: PlasmaConfig, periodic_bc: bool):

@@ -131,18 +131,30 @@ def _four_color_masks(NX: int, NY: int, interior_only: bool
     return tuple(masks)
 
 
-def _nb5(phi: torch.Tensor) -> torch.Tensor:
-    """((phi[y,x-1] + phi[y,x+1]) + phi[y-1,x]) + phi[y+1,x], with wrap;
-    interior-only updates never select the wrapped edge values."""
-    return (torch.roll(phi, 1, dims=1) + torch.roll(phi, -1, dims=1)
-            + torch.roll(phi, 1, dims=0) + torch.roll(phi, -1, dims=0))
+def _wrap(phi: torch.Tensor) -> torch.Tensor:
+    """phi padded by its own periodic wrap, a one-cell ring: what
+    jnp.roll reads beyond an edge (interior-only updates never select the
+    wrapped values). One padding serves a colour pass's four (the 9-point
+    pass's eight) rolls, bit for bit. On an H100 at 2048^2 f32,
+    scripts/time_sweep_forms_torch.py timed the 9-point solve at 0.63-0.79
+    of the rolls' time and GS and SOR at 0.85-1.13 (PERF.md §6). A block
+    of a sharded plane takes its ring from its neighbours instead
+    (parallel/mesh.pad_ring)."""
+    p = torch.cat([phi[-1:], phi, phi[:1]], dim=0)
+    return torch.cat([p[:, -1:], p, p[:, :1]], dim=1)
 
 
-def _nb_diag(phi: torch.Tensor) -> torch.Tensor:
-    return (torch.roll(phi, (1, 1), dims=(0, 1))
-            + torch.roll(phi, (1, -1), dims=(0, 1))
-            + torch.roll(phi, (-1, 1), dims=(0, 1))
-            + torch.roll(phi, (-1, -1), dims=(0, 1)))
+def _nb5_padded(p: torch.Tensor) -> torch.Tensor:
+    """((phi[y,x-1] + phi[y,x+1]) + phi[y-1,x]) + phi[y+1,x] of the plane
+    inside p, its one-cell ring: the sum of JAX's four rolls, in their
+    order."""
+    return p[1:-1, :-2] + p[1:-1, 2:] + p[:-2, 1:-1] + p[2:, 1:-1]
+
+
+def _nb_diag_padded(p: torch.Tensor) -> torch.Tensor:
+    """The diagonal neighbours' sum of the plane inside p, in the order of
+    JAX's rolls by (1, 1), (1, -1), (-1, 1), (-1, -1)."""
+    return p[:-2, :-2] + p[:-2, 2:] + p[2:, :-2] + p[2:, 2:]
 
 
 def _masked_update(phi, new, mask):
@@ -151,6 +163,22 @@ def _masked_update(phi, new, mask):
     upd = torch.where(mask, new, phi)
     err = torch.where(mask, (upd - phi).abs(), 0.0).max()
     return upd, err
+
+
+def _gs_pass(phi, nb, rho_q, mask, omega):
+    """One colour pass of GS (SOR with omega), given phi's 4-neighbour sum
+    nb: the masked update and its error."""
+    gs = 0.25 * (nb + rho_q)
+    new = gs if omega is None else (1.0 - omega) * phi + omega * gs
+    return _masked_update(phi, new, mask)
+
+
+def _nps_pass(phi, nb5, diag, rho_q, mask, twenty):
+    """One colour pass of the 9-point stencil, given phi's orthogonal and
+    diagonal neighbour sums; twenty is a 0-dim tensor on the device (CUDA's
+    true division by a host scalar multiplies by its reciprocal instead)."""
+    return _masked_update(phi, (4.0 * nb5 + diag + 6.0 * rho_q) / twenty,
+                          mask)
 
 
 def _iterate(phi0: torch.Tensor, sweep_fn: Callable, max_iter: int,
@@ -177,14 +205,10 @@ def solve_gs(phi0: torch.Tensor, rho_q: torch.Tensor, *, periodic: bool,
     red, black = (torch.as_tensor(m, device=rho_q.device)
                   for m in _checker_masks(NX, NY, not periodic))
 
-    def half(phi, mask):
-        gs = 0.25 * (_nb5(phi) + rho_q)
-        new = gs if omega is None else (1.0 - omega) * phi + omega * gs
-        return _masked_update(phi, new, mask)
-
     def sweep(phi):
-        phi, e1 = half(phi, red)
-        phi, e2 = half(phi, black)
+        phi, e1 = _gs_pass(phi, _nb5_padded(_wrap(phi)), rho_q, red, omega)
+        phi, e2 = _gs_pass(phi, _nb5_padded(_wrap(phi)), rho_q, black,
+                           omega)
         return phi, torch.maximum(e1, e2)
 
     return _iterate(phi0, sweep, max_iter, tol)
@@ -196,15 +220,14 @@ def solve_9point(phi0: torch.Tensor, rho_q: torch.Tensor, *, periodic: bool,
     NY, NX = rho_q.shape
     masks = [torch.as_tensor(m, device=rho_q.device)
              for m in _four_color_masks(NX, NY, not periodic)]
-    # a 0-dim tensor on the device, not a Python float: CUDA's true
-    # division by a host scalar multiplies by its reciprocal instead
     twenty = torch.tensor(20.0, dtype=rho_q.dtype, device=rho_q.device)
 
     def sweep(phi):
         err = torch.zeros((), dtype=phi.dtype, device=phi.device)
         for mask in masks:
-            new = (4.0 * _nb5(phi) + _nb_diag(phi) + 6.0 * rho_q) / twenty
-            phi, e = _masked_update(phi, new, mask)
+            p = _wrap(phi)
+            phi, e = _nps_pass(phi, _nb5_padded(p), _nb_diag_padded(p),
+                               rho_q, mask, twenty)
             err = torch.maximum(err, e)
         return phi, err
 

@@ -3,6 +3,10 @@ pull streaming (counterpart of lbm_tpu/ops/stream.py: stream_periodic, the
 bounce-back fixups and their flat-gather test oracle,
 bounceback_fix_dirs_gated as stream_bounceback_gated, stream_cavity; and
 stream_cavity_gated, the gated step_planes of the cavity window kernel).
+A block of a sharded lattice streams from its one-cell ring
+(stream_padded), then takes the walls it holds (bounceback_block,
+cavity_walls): what the partitioner makes of lbm_tpu's rolls and edge
+updates under its GSPMD steps.
 
 Bounce-back is applied as the periodic push plus edge-row and edge-column
 fixups (src/streaming.cpp:70-105). Unlike the JAX functions, which return
@@ -261,6 +265,92 @@ def stream_bounceback(f: torch.Tensor, stale: torch.Tensor | None = None
     return bounceback_from_periodic(stream_periodic(f), holes)
 
 
+def stream_padded(p: torch.Tensor) -> torch.Tensor:
+    """stream_periodic of a block from its one-cell ring: p is the block
+    (..., Q, n, m) padded to (..., Q, n + 2, m + 2) by its neighbours'
+    edge rows, columns and corners; out[i, y, x] = p[i, 1 + y - cy,
+    1 + x - cx], the same values the roll of the whole lattice moves
+    there (the cavity's pull streaming moves them alike)."""
+    n, m = p.shape[-2] - 2, p.shape[-1] - 2
+    return torch.stack([
+        p[..., i, 1 - int(CY[i]):1 - int(CY[i]) + n,
+          1 - int(CX[i]):1 - int(CX[i]) + m] for i in range(Q)], dim=-3)
+
+
+def bounceback_block(out: torch.Tensor, p: torch.Tensor, hole_vals: list,
+                     walls) -> torch.Tensor:
+    """bounceback_from_periodic on one block of a sharded lattice, IN
+    PLACE; returns `out`.
+
+    out: the block's periodic streaming (stream_padded(p)); p: its
+    post-collision populations with their one-cell ring, so that every
+    reflected source, f_post[i, y, x] = p[i, y + 1, x + 1] for y in
+    [-1, n], x in [-1, m], is at hand. walls: (bottom, top, left, right),
+    whether the block holds row 0, row NY-1, column 0, column NX-1 of the
+    lattice; only those edges are fixed. hole_vals: the 8 corner-hole
+    values in HOLE_SLOTS order, read from the block (a slot is used only
+    where the block holds both of its walls). The writes keep
+    bounceback_from_periodic's order and so its corner winners: the axis
+    directions, then for 5 the column and the row (which wins), for 6 the
+    row and the column (which wins), for 7 the column and the row (which
+    wins), for 8 the column and the row (which wins)."""
+    bottom, top, left, right = walls
+    n, m = out.shape[-2], out.shape[-1]
+    hole = dict(zip(HOLE_SLOTS, hole_vals))
+    # axis directions
+    if left:
+        out[..., 1, :, 0] = p[..., 3, 1:n + 1, 1]
+    if right:
+        out[..., 3, :, -1] = p[..., 1, 1:n + 1, m]
+    if bottom:
+        out[..., 2, 0, :] = p[..., 4, 1, 1:m + 1]
+    if top:
+        out[..., 4, -1, :] = p[..., 2, n, 1:m + 1]
+    # 5 (+1, +1) <- 7: f7[y + 1, 0] down the left wall, f7[0, x + 1] along
+    # the bottom
+    if left:
+        out[..., 5, :, 0] = p[..., 7, 2:n + 2, 1]
+        if top:
+            out[..., 5, -1, 0] = hole[(5, -1, 0)]
+    if bottom:
+        out[..., 5, 0, :] = p[..., 7, 1, 2:m + 2]
+        if right:
+            out[..., 5, 0, -1] = hole[(5, 0, -1)]
+    # 6 (-1, +1) <- 8: f8[0, x - 1] along the bottom, f8[y + 1, NX-1] up
+    # the right wall
+    if bottom:
+        out[..., 6, 0, :] = p[..., 8, 1, 0:m]
+        if left:
+            out[..., 6, 0, 0] = hole[(6, 0, 0)]
+    if right:
+        out[..., 6, :, -1] = p[..., 8, 2:n + 2, m]
+        if top:
+            out[..., 6, -1, -1] = hole[(6, -1, -1)]
+    # 7 (-1, -1) <- 5: f5[y - 1, NX-1] up the right wall, f5[NY-1, x - 1]
+    # along the top, whose last site reflects f5 in place
+    if right:
+        out[..., 7, :, -1] = p[..., 5, 0:n, m]
+        if bottom:
+            out[..., 7, 0, -1] = hole[(7, 0, -1)]
+    if top:
+        out[..., 7, -1, :] = p[..., 5, n, 0:m]
+        if left:
+            out[..., 7, -1, 0] = hole[(7, -1, 0)]
+        if right:
+            out[..., 7, -1, -1] = p[..., 5, n, m]
+    # 8 (+1, -1) <- 6: f6[y - 1, 0] up the left wall, f6[NY-1, x + 1]
+    # along the top
+    if left:
+        out[..., 8, :, 0] = p[..., 6, 0:n, 1]
+        if bottom:
+            out[..., 8, 0, 0] = hole[(8, 0, 0)]
+    if top:
+        out[..., 8, -1, :] = p[..., 6, n, 2:m + 2]
+        if right:
+            out[..., 8, -1, -1] = hole[(8, -1, -1)]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Cavity: pull streaming + 3 bounce-back walls + moving lid (top row)
 # ---------------------------------------------------------------------------
@@ -297,14 +387,28 @@ def stream_cavity_gated(f: torch.Tensor, u_lid_dyn: float, b_row: int,
     """
     fn = torch.stack([torch.roll(f[i], shifts=(int(CY[i]), int(CX[i])),
                                  dims=(0, 1)) for i in range(Q)])
-    # left wall x=0: incoming +x directions reflect from their opposites
-    fn[1, :, 0] = f[3, :, 0]
-    fn[8, :, 0] = f[6, :, 0]
-    fn[5, :, 0] = f[7, :, 0]
-    # right wall x=NX-1
-    fn[3, :, -1] = f[1, :, -1]
-    fn[7, :, -1] = f[5, :, -1]
-    fn[6, :, -1] = f[8, :, -1]
+    return cavity_walls(fn, f, u_lid_dyn, b_row, l_row)
+
+
+def cavity_walls(fn: torch.Tensor, f: torch.Tensor, u_lid_dyn: float,
+                 b_row: int, l_row: int, left: bool = True,
+                 right: bool = True) -> torch.Tensor:
+    """The cavity's walls written IN PLACE into the streamed fn from the
+    post-collision f (both (Q, n, m)); returns fn. The side walls span
+    every row of the columns held (left: x = 0, right: x = NX-1; a block
+    of a sharded lattice holds them only at the lattice's edge), then the
+    bottom wall at row b_row and the lid at row l_row (-1: none). Every
+    source is a site's own population."""
+    if left:
+        # left wall x=0: incoming +x directions reflect from their opposites
+        fn[1, :, 0] = f[3, :, 0]
+        fn[8, :, 0] = f[6, :, 0]
+        fn[5, :, 0] = f[7, :, 0]
+    if right:
+        # right wall x=NX-1
+        fn[3, :, -1] = f[1, :, -1]
+        fn[7, :, -1] = f[5, :, -1]
+        fn[6, :, -1] = f[8, :, -1]
     if b_row >= 0:
         fn[2, b_row, :] = f[4, b_row, :]
         fn[5, b_row, :] = f[7, b_row, :]

@@ -17,9 +17,10 @@ step:
   3. the sharded Poisson solve (parallel/poisson) on the block's rho_q.
 
 make_fused_sharded_step_auto picks the mesh as the JAX package does
-(pick_mesh), without its TPU memory test, and raises NotImplementedError
-where the JAX package falls back to its GSPMD jnp step (ROADMAP Queue 1
-item 17).
+(pick_mesh), without its TPU memory test; where the JAX package falls back
+to its GSPMD jnp step (bounce-back, GS/SOR/NPS, or no mesh of 8-multiple
+blocks) it returns parallel/sharding.make_sharded_step, the sharded plain
+step for any solver and wall.
 
 The plasma's windows (make_fused_sharded_multistep_rollout on a (dy, 1)
 mesh, _rollout_2d on (dy, dx) tiles) exchange K-row slabs of f, g, Ex and
@@ -76,9 +77,8 @@ from .mesh import (AXIS_X, AXIS_Y, AXIS_Z, make_mesh, make_mesh3d,
                    mesh_shape, ring_shift)
 from .poisson import (efield_periodic3d_sharded, solve_fft3d_y,
                       solve_fft3d_yz, solve_fft3d_z, solve_poisson_sharded)
-from .sharding import shard_state, shard_state3d, validate_grid
-
-GSPMD_ITEM = "ROADMAP Queue 1 item 17"
+from .sharding import (make_sharded_step, shard_state, shard_state3d,
+                       validate_grid)
 
 
 def _refuse_solver_and_walls(cfg: PlasmaConfig) -> None:
@@ -86,7 +86,8 @@ def _refuse_solver_and_walls(cfg: PlasmaConfig) -> None:
         raise ValueError("sharded fused step supports FFT/NONE Poisson")
     if cfg.bc != BC.PERIODIC:
         raise ValueError("fused sharded step is periodic-BC only (the "
-                         f"sharded step for bounce-back is {GSPMD_ITEM})")
+                         "sharded step for bounce-back is "
+                         "parallel/sharding.make_sharded_step)")
 
 
 def _phys(cfg: PlasmaConfig) -> dict:
@@ -166,23 +167,14 @@ def make_fused_sharded_step_2d(cfg: PlasmaConfig, mesh: DeviceMesh
     return step
 
 
-def pick_mesh(cfg: PlasmaConfig, n: int) -> Tuple[int, int]:
-    """The (ny, nx) mesh make_fused_sharded_step_auto runs n ranks on, in
-    the JAX package's order of preference: (n, 1) with the 1-D step when
-    NY divides 8n; else a (dy, dx) mesh with the 2-D step, dy descending
-    from n to 2 with nx >= 2. The JAX package's per-shard VMEM test
-    (_pick_band) is dropped: it measures the TPU's scratch memory, and the
-    CUDA kernel has no band; picks differ only where that band would not
-    fit. Where the JAX package falls back to its GSPMD jnp step
-    (bounce-back, GS/SOR/NPS, or no divisible 8-multiple) this raises
-    NotImplementedError; a grid that no factorisation divides raises
-    ValueError."""
+def _pick(cfg: PlasmaConfig, n: int) -> Tuple[Tuple[int, int], Callable]:
+    """pick_mesh's mesh and the function that makes its step."""
     if n < 2:
         raise ValueError("auto sharding needs >= 2 devices")
     fused_ok = (cfg.bc == BC.PERIODIC
                 and cfg.poisson in (PoissonSolver.FFT, PoissonSolver.NONE))
     if fused_ok and cfg.NY % (8 * n) == 0:
-        return n, 1
+        return (n, 1), make_fused_sharded_step
     divisors = [d for d in range(n, 0, -1) if n % d == 0]
     if fused_ok:
         for ny in divisors:
@@ -191,28 +183,40 @@ def pick_mesh(cfg: PlasmaConfig, n: int) -> Tuple[int, int]:
                 continue
             if cfg.NY % (8 * ny) or cfg.NX % (8 * nx):
                 continue
-            return ny, nx
+            return (ny, nx), make_fused_sharded_step_2d
     for ny in divisors:
         if cfg.NY % ny == 0 and cfg.NX % (n // ny) == 0:
-            raise NotImplementedError(
-                f"sharding {cfg.NY}x{cfg.NX} ({cfg.poisson.name}, "
-                f"{cfg.bc.name}) over {n} ranks needs the sharded plain "
-                f"step for any solver and wall, {GSPMD_ITEM}")
+            return (ny, n // ny), make_sharded_step
     raise ValueError(
         f"no feasible decomposition of {cfg.NY}x{cfg.NX} over {n} devices: "
         f"no mesh factorization divides the grid")
+
+
+def pick_mesh(cfg: PlasmaConfig, n: int) -> Tuple[int, int]:
+    """The (ny, nx) mesh make_fused_sharded_step_auto runs n ranks on, in
+    the JAX package's order of preference: (n, 1) with the 1-D step when
+    NY divides 8n; else a (dy, dx) mesh with the 2-D step, dy descending
+    from n to 2 with nx >= 2; else (bounce-back, GS/SOR/NPS, or no divisible
+    8-multiple) the first (ny, n/ny) with ny descending from n that divides
+    the grid, with the sharded plain step (parallel/sharding.
+    make_sharded_step, the counterpart of the JAX package's GSPMD step).
+    The JAX package's per-shard VMEM test (_pick_band) is dropped: it
+    measures the TPU's scratch memory, and the CUDA kernel has no band;
+    picks differ only where that band would not fit. A grid that no
+    factorisation divides raises ValueError."""
+    return _pick(cfg, n)[0]
 
 
 def make_fused_sharded_step_auto(cfg: PlasmaConfig, n: int,
                                  device_type: str = "cuda"):
     """(step, mesh, shard_fn) for n ranks: the mesh of pick_mesh over the
     initialised default group, its step, and shard_fn(full state) -> this
-    rank's block (the counterpart of the JAX function's shardings)."""
-    shape = pick_mesh(cfg, n)
+    rank's block (the counterpart of the JAX function's shardings). The
+    sharded plain step keeps cfg's backend: its collide is the collide-only
+    kernel on the fused and pallas backends."""
+    shape, make = _pick(cfg, n)
     mesh = make_mesh(shape, device_type)
     validate_grid(cfg, mesh)
-    make = (make_fused_sharded_step if shape[1] == 1
-            else make_fused_sharded_step_2d)
     return make(cfg, mesh), mesh, lambda state: shard_state(state, mesh)
 
 
@@ -383,7 +387,8 @@ def _cavity_shard_step(cfg: CavityConfig, mesh: DeviceMesh) -> Callable:
     if cfg.NY % (8 * n):
         raise ValueError(f"NY={cfg.NY} must be divisible by 8*{n} (the Ghia "
                          f"129^2 default is indivisible: use a multiple-of-8 "
-                         f"grid; the GSPMD cavity step is {GSPMD_ITEM})")
+                         f"grid; the sharded plain cavity step is "
+                         f"parallel/sharding.make_sharded_cavity_step)")
     cavity._check_supported(cfg)
     tau = cfg.tau
     bottom, top = _cavity_walls(mesh, n)

@@ -8,7 +8,9 @@ RANK, WORLD_SIZE and LOCAL_RANK). Rank r owns block (r // nx, r % nx) of
 an (ny, nx) mesh, and block (r // dy, r % dy) of a (dz, dy) mesh: the
 row-major order of JAX's devices.reshape(ny, nx). On
 CUDA devices the group is NCCL, one device a rank (cuda:LOCAL_RANK); gloo
-is used only when the caller asks for the CPU.
+is used only when the caller asks for the CPU. pad_ring gives a block its
+one-cell ring, corners included, for the sharded plain steps
+(parallel/sharding).
 """
 from __future__ import annotations
 
@@ -135,3 +137,29 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str,
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recvs
+
+
+def pad_ring(tensors: Sequence[torch.Tensor], mesh: DeviceMesh
+             ) -> List[torch.Tensor]:
+    """Each block (..., n, m) padded to (..., n + 2, m + 2) by the one-cell
+    ring of its (dy, dx) neighbours: the rows of the blocks behind and
+    ahead on dy, then the edge columns of those row-extended blocks from
+    the blocks behind and ahead on dx, which carry the four corners. On an
+    axis of size 1 the ring is the block's own wrap. This is what the
+    partitioner inserts for every jnp.roll of lbm_tpu's GSPMD steps
+    (lbm_tpu/parallel/sharding.py:7-11). Four batched exchanges, each of
+    every tensor."""
+    below = ring_shift([t[..., -1:, :] for t in tensors], mesh, AXIS_Y, 1)
+    above = ring_shift([t[..., :1, :] for t in tensors], mesh, AXIS_Y, -1)
+    rows = [torch.cat(p, dim=-2) for p in zip(below, tensors, above)]
+    left = ring_shift([t[..., -1:] for t in rows], mesh, AXIS_X, 1)
+    right = ring_shift([t[..., :1] for t in rows], mesh, AXIS_X, -1)
+    return [torch.cat(p, dim=-1) for p in zip(left, rows, right)]
+
+
+def block_walls(mesh: DeviceMesh) -> Tuple[bool, bool, bool, bool]:
+    """(bottom, top, left, right): whether this rank's block of a (dy, dx)
+    mesh holds row 0, row NY-1, column 0, column NX-1 of the lattice."""
+    by, bx = mesh.get_local_rank(AXIS_Y), mesh.get_local_rank(AXIS_X)
+    ny, nx = mesh_shape(mesh)
+    return by == 0, by == ny - 1, bx == 0, bx == nx - 1

@@ -24,6 +24,18 @@ correct but does not scale (a pencil decomposition is later work). E is
 ops/poisson.efield_periodic's central difference, with the neighbours'
 edge columns and rows taken by ring_shift. cfg.fft_engine is not read: the
 spectral kernel never runs sharded, as in the JAX package.
+
+GS, SOR and NPS (the sharded plain step's, lbm_tpu/parallel/sharding.py:
+make_sharded_step, whose GSPMD partition of ops/poisson.solve_gs and
+solve_9point this is) sweep the block: before each colour pass phi gets
+its one-cell ring (parallel/mesh.pad_ring; the 9-point pass reads the
+corners), the colour masks are the single-device ones cut to the block,
+and each sweep's error is all-reduced with MAX, so that every rank runs
+the single-device stop test on the same number and stops at the same
+sweep (ops/poisson.LAST_SWEEPS is the single-device count). cfg.iter_engine
+is not read: the solve kernel never runs sharded, as lbm_tpu forces
+iter_engine="xla" there. Under bounce-back E takes the Neumann closure on
+the blocks that hold the lattice's edges.
 """
 from __future__ import annotations
 
@@ -34,10 +46,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import BC, PoissonSolver
-from ..models.plasma import _solve_poisson
+from ..models.plasma import _iter_spec, _solve_poisson
 from ..models.plasma3d import _spectral_inv3d_tensor
+from ..ops import poisson as poisson_ops
 from ..ops.poisson import _inverse_eigenvalues
-from .mesh import AXIS_X, AXIS_Y, AXIS_Z, _wire, mesh_shape, ring_shift
+from .mesh import (AXIS_X, AXIS_Y, AXIS_Z, _wire, block_walls, mesh_shape,
+                   pad_ring, ring_shift)
 
 
 def _all_to_all(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
@@ -103,19 +117,108 @@ def efield_periodic_sharded(phi: torch.Tensor, mesh: DeviceMesh
     return Ex, Ey
 
 
+def efield_neumann_sharded(phi: torch.Tensor, mesh: DeviceMesh
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ops/poisson.efield_neumann on a sharded phi: the central difference
+    of efield_periodic_sharded, then the copy-to-edge closure on the
+    blocks that hold the lattice's edges, rows first, then columns (the
+    single-device order, corners included). The block needs two rows and
+    two columns (make_sharded_step checks)."""
+    Ex, Ey = efield_periodic_sharded(phi, mesh)
+    bottom, top, left, right = block_walls(mesh)
+    for E in (Ex, Ey):
+        if bottom:
+            E[0, :] = E[1, :]
+        if top:
+            E[-1, :] = E[-2, :]
+        if left:
+            E[:, 0] = E[:, 1]
+        if right:
+            E[:, -1] = E[:, -2]
+    return Ex, Ey
+
+
+def _max_over_ranks(err: torch.Tensor) -> torch.Tensor:
+    """The largest of every rank's 0-dim err, NaN if any rank's is NaN
+    (jnp.max and torch's max propagate NaN; an all-reduce MAX need not):
+    one all-reduce of (err, isnan)."""
+    if dist.get_world_size() == 1:
+        return err
+    nan = err.isnan()
+    t = torch.stack([torch.where(nan, torch.zeros_like(err), err),
+                     nan.to(err.dtype)])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return torch.where(t[1] > 0, torch.full_like(err, float("nan")), t[0])
+
+
+def solve_iter_sharded(phi0: torch.Tensor, rho_q: torch.Tensor,
+                       mesh: DeviceMesh, spec) -> torch.Tensor:
+    """ops/poisson.solve_gs (GS, or SOR with an omega) or solve_9point
+    (NPS) on this rank's block of phi and rho_q; spec is
+    kernels/poisson_iter's (kind, omega, max_iter, tol, interior_only).
+    Bitwise the single-device sweeps' block, with their sweep count."""
+    kind, omega, max_iter, tol, interior_only = spec
+    n, m = rho_q.shape
+    ny, nx = mesh_shape(mesh)
+    y0 = mesh.get_local_rank(AXIS_Y) * n
+    x0 = mesh.get_local_rank(AXIS_X) * m
+    masks = (poisson_ops._checker_masks if kind == "gs"
+             else poisson_ops._four_color_masks)(nx * m, ny * n,
+                                                 interior_only)
+    masks = [torch.as_tensor(k[y0:y0 + n, x0:x0 + m], device=rho_q.device)
+             for k in masks]
+
+    def ring(phi):
+        return pad_ring([phi], mesh)[0]
+
+    if kind == "gs":
+        def sweep(phi):
+            phi, e1 = poisson_ops._gs_pass(
+                phi, poisson_ops._nb5_padded(ring(phi)), rho_q, masks[0],
+                omega)
+            phi, e2 = poisson_ops._gs_pass(
+                phi, poisson_ops._nb5_padded(ring(phi)), rho_q, masks[1],
+                omega)
+            return phi, _max_over_ranks(torch.maximum(e1, e2))
+    else:
+        twenty = torch.tensor(20.0, dtype=rho_q.dtype, device=rho_q.device)
+
+        def sweep(phi):
+            err = torch.zeros((), dtype=phi.dtype, device=phi.device)
+            for mask in masks:
+                p = ring(phi)
+                phi, e = poisson_ops._nps_pass(
+                    phi, poisson_ops._nb5_padded(p),
+                    poisson_ops._nb_diag_padded(p), rho_q, mask, twenty)
+                err = torch.maximum(err, e)
+            return phi, _max_over_ranks(err)
+
+    return poisson_ops._iterate(phi0, sweep, max_iter, tol)
+
+
 def solve_poisson_sharded(cfg, rho_q: torch.Tensor, phi: torch.Tensor,
                           Ex: torch.Tensor, Ey: torch.Tensor,
                           mesh: DeviceMesh
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(Ex, Ey, phi) of this rank's block after the step's solve: NONE as
-    on one device, FFT with periodic walls by the slab solve."""
-    if cfg.poisson == PoissonSolver.NONE:
+    """(Ex, Ey, phi) of this rank's block after the step's solve, with
+    models/plasma._solve_poisson's quirks: NONE as on one device (the
+    compat flag that zeroes E included); FFT under bounce-back the
+    reference's no-op (E keeps its value); FFT with periodic walls by the
+    slab solve; GS, SOR and NPS by solve_iter_sharded, E following the
+    walls."""
+    sol = cfg.poisson
+    if sol == PoissonSolver.NONE:
         return _solve_poisson(cfg, rho_q, phi, Ex, Ey)
-    if cfg.poisson != PoissonSolver.FFT or cfg.bc != BC.PERIODIC:
-        raise ValueError("the sharded solve supports NONE, and FFT with "
-                         "periodic walls")
-    phi = solve_fft_sharded(rho_q, mesh)
-    Ex, Ey = efield_periodic_sharded(phi, mesh)
+    periodic_bc = cfg.bc == BC.PERIODIC
+    if sol == PoissonSolver.FFT:
+        if not periodic_bc:
+            return Ex, Ey, phi
+        phi = solve_fft_sharded(rho_q, mesh)
+    else:
+        phi = solve_iter_sharded(phi, rho_q, mesh,
+                                 _iter_spec(cfg, periodic_bc))
+    Ex, Ey = (efield_periodic_sharded(phi, mesh) if periodic_bc
+              else efield_neumann_sharded(phi, mesh))
     return Ex, Ey, phi
 
 

@@ -17,21 +17,36 @@ rows [by * NY/dy, ...) of the column, NX whole, where (bz, by) = (rank //
 dy, rank % dy): shard_state3d and gather_state3d place and gather f, g,
 Ex, Ey, Ez and phi of a Plasma3DState.
 
-The JAX module's GSPMD steps (make_sharded_step for any solver and wall,
-state_shardings3d/make_sharded_step3d, make_sharded_cavity_step) hold no
-kernel and are not ported here; ROADMAP Queue 1 item 17 brings them.
+The JAX module's GSPMD steps run here as explicit block programs on the
+(dy, dx) mesh: make_sharded_step (the 2-D plasma, any solver and wall) and
+make_sharded_cavity_step. Each rank collides its block (site-local), pads
+the post-collision populations with their one-cell ring
+(parallel/mesh.pad_ring: what the partitioner inserts for every jnp.roll),
+streams from the ring (ops/stream.stream_padded), takes the walls its
+block holds (ops/stream.bounceback_block, cavity_walls: only the blocks at
+the lattice's edges; the corner holes only on the corner blocks) and, for
+the plasma, solves on the block (parallel/poisson.solve_poisson_sharded:
+the iterative sweeps' error all-reduced with MAX). Each equals the
+single-device plain step's block bit for bit, apart from the periodic FFT
+solve's rounding. The 3-D GSPMD step (state_shardings3d,
+make_sharded_step3d) is ROADMAP Queue 1 item 17b.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.plasma import PlasmaState
-from .mesh import _wire, mesh_shape
+from ..config import BC, CavityConfig, PlasmaConfig
+from ..models import cavity
+from ..models.plasma import PlasmaState, check_supported, plain_step
+from ..ops import stream as stream_ops
+from ..ops.cavity import collide_dirs, macros_guarded
+from .mesh import _wire, block_walls, mesh_shape, pad_ring
+from .poisson import solve_poisson_sharded
 
 
 def validate_grid(cfg, mesh: DeviceMesh) -> None:
@@ -166,3 +181,86 @@ def gather_state3d(state, mesh: DeviceMesh):
     """The full Plasma3DState from every rank's block, on every rank."""
     return state._replace(**{k: _gather3d(getattr(state, k), mesh)
                              for k in PLASMA3D_FIELDS})
+
+
+# ---------------------------------------------------------------------------
+# The sharded plain steps (lbm_tpu/parallel/sharding.py: make_sharded_step,
+# make_sharded_cavity_step)
+# ---------------------------------------------------------------------------
+
+def make_sharded_step(cfg: PlasmaConfig, mesh: DeviceMesh
+                      ) -> Callable[[PlasmaState], PlasmaState]:
+    """One plasma step on this rank's block of a (dy, dx) mesh, for every
+    solver (NONE, FFT, GS, SOR, NPS) and both wall types, native f64 and
+    f32 or bf16 storage: models/plasma.plain_step, streaming from the
+    block's ring with the walls the block holds, and solving on the block.
+    The single-device plain step's quirks come along: the stale
+    pre-collision f in f's corner holes, the post-collision f (plus the
+    neutral's delta background) in g's, the debug variant's own.
+
+    The collide is site-local: the plain ops on the plain backend, the
+    collide-only kernel (kernels/collide_pallas.fused_collide) on the
+    fused and pallas backends, where it raises if its build or launch
+    fails. That kernel has no bf16 mode, as the TPU one has none, so bf16
+    storage collides with the plain ops on the plain and fused backends
+    and is refused on the pallas one, as make_step refuses it. The solves
+    take the plain routes (parallel/poisson.solve_poisson_sharded), as
+    lbm_tpu forces fft_engine = iter_engine = "xla" under GSPMD."""
+    check_supported(cfg)
+    if cfg.storage == "bf16" and cfg.backend == "pallas":
+        raise ValueError("bf16 storage supports the plain and fused backends")
+    validate_grid(cfg, mesh)
+    ny, nx = mesh_shape(mesh)
+    if cfg.bc != BC.PERIODIC and (cfg.NY // ny < 2 or cfg.NX // nx < 2):
+        # efield_neumann's edge rows and columns copy their neighbours
+        raise ValueError(f"grid {cfg.NY}x{cfg.NX} on mesh {ny}x{nx}: a "
+                         f"walled block needs two rows and two columns")
+    if cfg.compat.debug_variant and cfg.backend != "plain":
+        raise ValueError("debug_variant mode is plain-backend only")
+    walls = block_walls(mesh)
+
+    def stream(f_post, g_post, f_holes, g_holes):
+        out = []
+        for p, h in zip(pad_ring([f_post, g_post], mesh), (f_holes, g_holes)):
+            streamed = stream_ops.stream_padded(p)
+            out.append(streamed if h is None else
+                       stream_ops.bounceback_block(streamed, p, h, walls))
+        return out
+
+    def solve(cfg, rho_q, phi, Ex, Ey):
+        return solve_poisson_sharded(cfg, rho_q, phi, Ex, Ey, mesh)
+
+    return plain_step(cfg, cfg.backend in ("fused", "pallas")
+                      and cfg.storage != "bf16", stream, solve)
+
+
+def make_sharded_cavity_step(cfg: CavityConfig, mesh: DeviceMesh
+                             ) -> Callable:
+    """One cavity step on this rank's block of a (dy, dx) mesh: collide,
+    pull-stream from the block's ring, the side walls on the blocks that
+    hold x = 0 or x = NX-1, the bottom wall and the moving lid (at the
+    host-side ramp's speed) on the blocks that hold the lattice's first
+    and last rows, then the guarded macros. The plain ops on every backend
+    (lbm_tpu runs its jnp step under GSPMD). The grid must divide the mesh
+    (Ghia's 129^2 runs on a (1, 1) mesh only)."""
+    validate_grid(cfg, mesh)
+    cavity._check_supported(cfg)
+    tau = cfg.tau
+    bottom, top, left, right = block_walls(mesh)
+    Q = stream_ops.Q
+
+    def step(state):
+        ff = cavity.decode_f(cfg, state.f)
+        f_post = torch.stack(collide_dirs([ff[i] for i in range(Q)],
+                                          state.rho, state.ux, state.uy,
+                                          tau))
+        (p,) = pad_ring([f_post], mesh)
+        f = stream_ops.cavity_walls(
+            stream_ops.stream_padded(p), f_post,
+            cavity._lid_speed(cfg, state.step), 0 if bottom else -1,
+            f_post.shape[-2] - 1 if top else -1, left, right)
+        rho, ux, uy = macros_guarded([f[i] for i in range(Q)])
+        return cavity.CavityState(cavity.encode_f(cfg, f), rho, ux, uy,
+                                  state.step + 1)
+
+    return step

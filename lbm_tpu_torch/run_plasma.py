@@ -441,6 +441,6 @@ def _check_shard(args: argparse.Namespace, cfg: C.PlasmaConfig) -> None:
             fused_sharded.multistep_plan(cfg, (args.shard, 1))
         else:
             fused_sharded.pick_mesh(cfg, args.shard)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(f"--shard{' --multistep' if cfg.multistep else ''}"
                          f": {e}")

@@ -36,14 +36,20 @@ FIELDS = ("f", "rho", "ux", "uy")
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def started(tmp_path_factory):
+    """The 4-rank and the 2-rank spawn, running at once while the JAX
+    references are made."""
+    procs = ranks.start_worlds("cavity", (4, 2), tmp_path_factory)
+    yield procs
+    for r in procs.values():
+        r.close()
+
+
+@pytest.fixture(scope="module")
+def runs(started, jax_refs):
     """{world: rank 0's results} of the 4-rank and the 2-rank spawn, with
     the directory they wrote to under "out_dir"."""
-    out = {}
-    for n in (4, 2):
-        tmp = tmp_path_factory.mktemp(f"cavity{n}")
-        out[n] = dict(ranks.spawn("cavity", n, tmp), out_dir=tmp)
-    return out
+    return {n: dict(r.result(), out_dir=r.tmp) for n, r in started.items()}
 
 
 def _jax_run(cfg, steps, keep=()):
@@ -62,7 +68,7 @@ def _jax_run(cfg, steps, keep=()):
 
 
 @pytest.fixture(scope="module")
-def jax_refs():
+def jax_refs(started):
     """The JAX references, each computed once: f64 64x48 after 30 steps,
     bf16 64x48 after 20 (jnp, and its lean kernel in interpret mode, as
     tests/test_fused_cavity.py:test_lean_sharded_bf16 holds it), f64 32x48

@@ -494,14 +494,15 @@ def test_sharded_clis_resume_bitwise_on_two_ranks(tmp_path):
     the gathered state; resumed runs equal straight ones bit for bit, the
     sharded windows equal the single-device CLI's, and a NaN in one rank's
     block raises BlowupError on both ranks at the first check."""
-    res = ranks.spawn("checkpoint", 2, tmp_path)
-    for label, *_ in ranks.CHECKPOINT_CLI:
-        a = res[label]["_a"]
-        _assert_bitwise(res[label]["_c"], a, type(a)._fields)
-    assert res["blowup_steps"] == [1, 1]
+    procs = ranks.Ranks("checkpoint", 2, tmp_path)
     single = run_plasma.main(["--device", "cpu", "--nx", "32", "--ny", "32",
                               "--multistep", "2", "--poisson", "NONE",
                               "--steps", "6", "--no-video", "--no-plots",
                               "--out", str(tmp_path / "one")])
+    res = procs.result()       # the ranks ran meanwhile
+    for label, *_ in ranks.CHECKPOINT_CLI:
+        a = res[label]["_a"]
+        _assert_bitwise(res[label]["_c"], a, type(a)._fields)
+    assert res["blowup_steps"] == [1, 1]
     _assert_bitwise(res["plasma_windows"]["_a"], single["state"],
                     jplasma.PlasmaState._fields)

@@ -201,10 +201,12 @@ extern "C" int host_collide_stream_halo(int mode, int delta,
 
 
 def _build_host(tmp_path_factory, name, source, stubs, csrc=CSRC,
-                flags=()):
+                flags=(), opt="-O0"):
     """Build `source` with the host's C++ compiler against the headers in
     `csrc` (and the header stand-ins) into a library; skip without a
-    compiler."""
+    compiler. Unoptimised unless `opt` says otherwise: most builds run
+    for less time than -O1 takes to compile them (the rounding is IEEE's
+    at either level, no contraction)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the site code with")
@@ -213,7 +215,7 @@ def _build_host(tmp_path_factory, name, source, stubs, csrc=CSRC,
         (d / header).write_text(text)
     src, lib = d / f"{name}.cpp", d / f"lib{name}.so"
     src.write_text(source)
-    r = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
+    r = subprocess.run([cxx, opt, "-std=c++17", "-ffp-contract=off",
                         "-fno-fast-math", "-fPIC", "-shared",
                         "-Wno-unknown-pragmas", *flags, f"-I{d}",
                         f"-I{csrc}", str(src), "-o", str(lib)],
@@ -1133,8 +1135,8 @@ extern "C" int host_in_place(int interior, int NY, int NX) {
 """
 
 
-def _host_tiles(tmp_path_factory, name, csrc=CSRC):
-    so = _build_host(tmp_path_factory, name, _TILE_HOST, {}, csrc)
+def _host_tiles(tmp_path_factory, name, csrc=CSRC, opt="-O0"):
+    so = _build_host(tmp_path_factory, name, _TILE_HOST, {}, csrc, opt=opt)
     ci, cd, vp = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
     so.host_solve_tiles.argtypes = [ci, ci, ci, cd, ci, cd, vp, vp, vp, ci,
                                     ci, ci, ci]
@@ -1146,7 +1148,8 @@ def _host_tiles(tmp_path_factory, name, csrc=CSRC):
 
 @pytest.fixture(scope="module")
 def host_tiles(tmp_path_factory):
-    return _host_tiles(tmp_path_factory, "host_tiles")
+    # optimised: its sweeps run up to 5000 times on each cut
+    return _host_tiles(tmp_path_factory, "host_tiles", opt="-O1")
 
 
 _TILE_KINDS = {"gs": ("gs", None), "sor": ("gs", 1.8), "nps": ("nps", None)}

@@ -20,9 +20,10 @@ refusals and --shard N --multistep K on the plasma CLI.
     window rollout, bf16 storage included;
   * the CLI with --shard 2 --multistep 4 on two ranks against the
     single-device --multistep 4 CLI.
-Each JAX reference is one march of the JAX step run op by op (the
-port matches it bit for bit; jitted, XLA's fusion moves last bits), shared
-by the cases that need its state.
+Each JAX reference is one march of the JAX step jitted at O0 (within
+~1e-15 of scale of the step run op by op, which the port matches bit for
+bit; the default jit's fused multiply-adds move last bits), shared by the
+cases that need its state.
 """
 import dataclasses
 import functools
@@ -44,7 +45,7 @@ from lbm_tpu_torch.ops import stream
 from lbm_tpu_torch.parallel import fused_sharded, mesh
 
 import torch_dist_ranks as ranks
-from torch_parity import configs, np_of, op_by_op, perturb, to_torch
+from torch_parity import configs, jit_o0, np_of, perturb, to_torch
 
 torch.set_num_threads(1)
 
@@ -153,12 +154,19 @@ def test_gated_wrapper_never_takes_the_plain_version_off_the_cpu():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{world: rank 0's results} of the 4-rank and the 2-rank spawn, with
-    the directory they wrote to under "out_dir"."""
-    out = {}
-    for n in (4, 2):
-        tmp = tmp_path_factory.mktemp(f"windows{n}")
-        out[n] = dict(ranks.spawn("windows", n, tmp), out_dir=tmp)
-    return out
+    the directory they wrote to under "out_dir". Both run at once, and the
+    f64 cases' JAX marches are made meanwhile."""
+    started = ranks.start_worlds("windows", (4, 2), tmp_path_factory)
+    try:
+        for _, (_, _, NY, NX, solver, bc, dtype, _, delta, kill,
+                _) in _cases():
+            if dtype == torch.float64:
+                _jax_states(NY, NX, solver, bc, delta, kill)
+        yield {n: dict(r.result(), out_dir=r.tmp)
+               for n, r in started.items()}
+    finally:
+        for r in started.values():
+            r.close()
 
 
 def _cases():
@@ -176,10 +184,11 @@ def _jax_cfg(NY, NX, solver, bc, delta, kill):
 @functools.lru_cache(maxsize=None)
 def _jax_states(NY, NX, solver, bc, delta, kill):
     """The JAX package's single-device jnp states after 16 and 19 steps of
-    its step run op by op: jitted, XLA's fusion moves the f64 neutral's g
-    by ~4e-13 of g's scale in 19 steps here."""
+    its step, jitted at O0 (torch_parity.jit_o0: within 5e-16 of scale of
+    the step run op by op here; the default jit's fused multiply-adds move
+    the f64 neutral's g by ~4e-13 of g's scale in 19 steps)."""
     cj = _jax_cfg(NY, NX, solver, bc, delta, kill)
-    step = op_by_op(jplasma.make_step(cj))
+    step = jit_o0(jplasma.make_step(cj))
     state, out = jplasma.init_state(cj), {}
     for t in range(1, 20):
         state = step(state)

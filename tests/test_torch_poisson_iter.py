@@ -3,7 +3,8 @@
   * lbm_tpu_torch.ops.poisson.solve_gs (GS, SOR) and solve_9point (NPS),
     periodic and interior-only, at 16x24 and 15x21 (odd: the periodic wrap
     gives a site a neighbour of its own colour), against lbm_tpu.ops.poisson
-    run op by op, bitwise in f64: a fixed 60 sweeps, tol-stopped solves
+    run op by op (GS and SOR compiled at O0, which rounds as op by op does),
+    bitwise in f64: a fixed 60 sweeps, tol-stopped solves
     (equal phi means an equal sweep count, since phi changes every sweep),
     and a phi0 holding a NaN (one sweep, as jnp.max propagates NaN);
   * efield_neumann, bitwise;
@@ -16,6 +17,8 @@
 The CUDA kernel itself runs only on a GPU: chip_smoke.py holds it bitwise
 against these plain sweeps there.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +29,7 @@ from lbm_tpu.ops import poisson as jpoisson
 from lbm_tpu_torch.kernels import poisson_iter
 from lbm_tpu_torch.ops import poisson as tpoisson
 
-from torch_parity import op_by_op
+from torch_parity import jit_o0, op_by_op
 
 torch.set_num_threads(1)
 
@@ -41,12 +44,16 @@ def _fields(ny, nx, seed):
     return 0.005 * rng.random((ny, nx)), rho
 
 
-@op_by_op
 def _jax_solve(kind, omega, phi0, rho, **kw):
+    """lbm_tpu's solve, bitwise as run op by op: GS and SOR compiled at O0
+    (torch_parity.jit_o0: no fused multiply-adds; one compile, not a
+    Python loop of sweeps), NPS op by op (XLA's simplifier turns its
+    division by 20 into a product with the reciprocal even at O0)."""
     args = (jnp.asarray(phi0), jnp.asarray(rho))
     if kind == "gs":
-        return np.asarray(jpoisson.solve_gs(*args, omega=omega, **kw))
-    return np.asarray(jpoisson.solve_9point(*args, **kw))
+        return np.asarray(jit_o0(functools.partial(
+            jpoisson.solve_gs, omega=omega, **kw))(*args))
+    return np.asarray(op_by_op(jpoisson.solve_9point)(*args, **kw))
 
 
 def _torch_solve(kind, omega, phi0, rho, **kw):

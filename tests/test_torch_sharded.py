@@ -34,12 +34,25 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
-def mesh_runs(tmp_path_factory):
-    return ranks.spawn("steps", 4, tmp_path_factory.mktemp("steps"))
+def started(tmp_path_factory):
+    """The 4-rank and the 2-rank spawn, running at once while the JAX
+    references are made."""
+    procs = {"steps": ranks.Ranks("steps", 4,
+                                  tmp_path_factory.mktemp("steps")),
+             "ring_cli": ranks.Ranks("ring_cli", 2,
+                                     tmp_path_factory.mktemp("ring_cli"))}
+    yield procs
+    for r in procs.values():
+        r.close()
 
 
 @pytest.fixture(scope="module")
-def jax_steps():
+def mesh_runs(started, jax_steps):
+    return started["steps"].result()
+
+
+@pytest.fixture(scope="module")
+def jax_steps(started):
     """The JAX package's single-device jnp state after ranks.STEPS steps,
     op by op, for each f64 case's (NY, NX, solver)."""
     out = {}
@@ -137,9 +150,9 @@ def test_step_builders_refuse_what_jax_refuses(make, cfg, shape, match):
     (_cfg(NX=32, NY=64), 4, (4, 1)),
     (_cfg(NX=16, NY=16), 4, (2, 2)),
     (_cfg(NX=64, NY=16), 8, (2, 4)),
-    (_cfg(NX=16, NY=16, bc=BC.BOUNCE_BACK), 4, NotImplementedError),
-    (_cfg(NX=64, NY=64, poisson=PoissonSolver.NPS), 4, NotImplementedError),
-    (_cfg(NX=12, NY=12), 4, NotImplementedError),
+    (_cfg(NX=16, NY=16, bc=BC.BOUNCE_BACK), 4, (4, 1)),
+    (_cfg(NX=64, NY=64, poisson=PoissonSolver.NPS), 4, (4, 1)),
+    (_cfg(NX=12, NY=12), 4, (4, 1)),
     (_cfg(NX=17, NY=13), 4, ValueError),
     (_cfg(NX=32, NY=64), 1, ValueError),
 ], ids=["1d", "2d", "2x4", "bounceback-gspmd", "nps-gspmd",
@@ -148,14 +161,14 @@ def test_pick_mesh_picks_what_jax_picks(cfg, n, want):
     if isinstance(want, tuple):
         assert fused_sharded.pick_mesh(cfg, n) == want
         # the JAX picker, on the virtual CPU devices (it builds, but does
-        # not compile, its step)
-        cfg_j, _ = configs(NX=cfg.NX, NY=cfg.NY)
+        # not compile, its step; the last three cases take its GSPMD step)
+        cfg_j, _ = configs(NX=cfg.NX, NY=cfg.NY, bc=cfg.bc,
+                           poisson=cfg.poisson)
         _, jax_mesh, _ = jfused.make_fused_sharded_step_auto(
             cfg_j, jax.devices()[:n])
         assert tuple(jax_mesh.devices.shape) == want
         return
-    with pytest.raises(want, match="ROADMAP Queue 1 item 17"
-                       if want is NotImplementedError else "devices"):
+    with pytest.raises(want, match="devices"):
         fused_sharded.pick_mesh(cfg, n)
 
 
@@ -166,8 +179,14 @@ def test_shard_refusals_before_any_group(tmp_path):
                              str(tmp_path)])
 
 
-def test_ring_shift_and_cli_on_two_ranks(tmp_path):
-    out = ranks.spawn("ring_cli", 2, tmp_path)
+@pytest.fixture(scope="module")
+def two_ranks(started):
+    r = started["ring_cli"]
+    return r.tmp, r.result()
+
+
+def test_ring_shift_and_cli_on_two_ranks(two_ranks, tmp_path):
+    out_dir, out = two_ranks
     # the peer ahead is the peer behind: each rank holds the other's
     for r, got in enumerate(out["received"]):
         other = 1 - r
@@ -189,6 +208,22 @@ def test_ring_shift_and_cli_on_two_ranks(tmp_path):
         assert float(np.abs(got - want).max()) <= 1e-12 * scale, q
     assert_close(out["f"], single["state"].f, rtol=1e-12, atol_rel=1e-12,
                  name="f")
-    with open(tmp_path / "cli" / "simulation_time_plasma_details.csv") as fh:
+    with open(out_dir / "cli" / "simulation_time_plasma_details.csv") as fh:
         rows = fh.read().splitlines()
     assert len(rows) == 2 and rows[1].split(",")[2] == "2", rows
+
+
+def test_bounceback_cli_on_two_ranks(two_ranks, tmp_path):
+    """--shard 2 --bc bounceback runs the sharded plain step on the auto
+    mesh (2, 1); its probes and state equal the single-device CLI's."""
+    _, out = two_ranks
+    got = out["bb"]
+    assert got["mesh"] == {"dy": 2, "dx": 1}
+    single = run_plasma.main([*ranks.CLI_BOUNCEBACK, "--out",
+                              str(tmp_path / "single")])
+    for q, want in single["probes"].items():
+        assert got["probes"][q].shape == want.shape == (3, 9), q
+        assert np.array_equal(got["probes"][q], want), q
+    for name in ("f", "g", "Ex", "Ey"):
+        assert torch.equal(getattr(got["state"], name),
+                           getattr(single["state"], name)), name

@@ -36,12 +36,13 @@ FIELDS = ("f", "g", "Ex", "Ey", "Ez", "phi")
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Rank 0's results of the 4-rank and the 2-rank spawn."""
-    out = {}
-    for n in (4, 2):
-        tmp = tmp_path_factory.mktemp(f"column{n}")
-        out[n] = {**ranks.spawn("column", n, tmp), "dir": tmp}
-    return out
+    """Rank 0's results of the 4-rank and the 2-rank spawn (run at once)."""
+    started = ranks.start_worlds("column", (4, 2), tmp_path_factory)
+    try:
+        yield {n: {**r.result(), "dir": r.tmp} for n, r in started.items()}
+    finally:
+        for r in started.values():
+            r.close()
 
 
 def _single(cfg, label, steps):

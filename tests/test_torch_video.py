@@ -299,8 +299,7 @@ def test_sharded_videos_equal_single_device(tmp_path):
     """Two gloo ranks: the plasma's tiles gathered by rank 0 and the
     cavity's frames under the global min and max equal the single-device
     CLIs' frames bit for bit."""
-    out = ranks.spawn("video", 2, tmp_path)
-    assert out["mesh"] == {"dy": 2, "dx": 1}
+    procs = ranks.Ranks("video", 2, tmp_path)
     os.environ["LBM_VIDEO_FORMAT"] = "avi"
     try:
         plasma_one = run_plasma.main([*ranks.VIDEO_PLASMA, "--out",
@@ -309,6 +308,8 @@ def test_sharded_videos_equal_single_device(tmp_path):
                                       str(tmp_path / "one_cavity")])
     finally:
         del os.environ["LBM_VIDEO_FORMAT"]
+    out = procs.result()       # the ranks ran meanwhile
+    assert out["mesh"] == {"dy": 2, "dx": 1}
     for kind, path in plasma_one["video"].items():
         want = avi.read_frames(path)
         assert want.shape[0] == 3

@@ -1,19 +1,21 @@
 """Rank bodies of tests/test_torch_sharded.py,
 tests/test_torch_cavity_sharded.py, tests/test_torch_sharded3d.py,
-tests/test_torch_multistep_sharded.py, tests/test_torch_checkpoint.py and
-tests/test_torch_video.py (not collected), and spawn(), which runs them.
+tests/test_torch_multistep_sharded.py, tests/test_torch_checkpoint.py,
+tests/test_torch_video.py and tests/test_torch_sharded_plain.py (not
+collected), and spawn(), which runs them.
 
     python tests/torch_dist_ranks.py SCENARIO RANK WORLD INIT_FILE OUT_DIR
 
-Each rank is its own process on the CPU: it joins a gloo group through a
-file:// store, runs SCENARIO, and rank 0 writes what the test compares to
-OUT_DIR/result.pt. It imports torch and lbm_tpu_torch only, never JAX.
+Each rank is its own process on the CPU, forked from a forkserver that
+imported this module: it joins a gloo group through a file:// store, runs
+SCENARIO, and rank 0 writes what the test compares to OUT_DIR/result.pt.
+It imports torch and lbm_tpu_torch only, never JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -30,33 +32,88 @@ from lbm_tpu_torch.models import cavity, plasma, plasma3d  # noqa: E402
 from lbm_tpu_torch.parallel import fused_sharded, mesh, sharding  # noqa: E402
 
 
+# Ranks fork from one forkserver a test process, which imports this module
+# (torch, lbm_tpu_torch) once: in a fresh interpreter, importing them is
+# most of a rank's CPU time at these scenarios' small grids
+PRELOAD = ["torch_dist_ranks", "lbm_tpu_torch.run_plasma"]
+_CONTEXT = []
+
+
+def _context():
+    if not _CONTEXT:
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload(PRELOAD)
+        _CONTEXT.append(ctx)
+    return _CONTEXT[0]
+
+
+def _rank_body(scenario: str, rank: int, world: int, tmp: str) -> None:
+    """A forked rank: its output to tmp/rank<r>.log, then main()."""
+    log = os.open(os.path.join(tmp, f"rank{rank}.log"),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(log, 1)
+    os.dup2(log, 2)
+    os.chdir(tmp)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    main([scenario, str(rank), str(world), os.path.join(tmp, "store"), tmp])
+
+
+class Ranks:
+    """`world` rank processes of `scenario`, started and left running
+    (tmp: a pathlib.Path for the store, the ranks' logs and the result),
+    so that the test can compute its references meanwhile; result() waits
+    for them."""
+
+    def __init__(self, scenario: str, world: int, tmp):
+        self.tmp = tmp
+        ctx = _context()
+        self.procs = [ctx.Process(target=_rank_body,
+                                  args=(scenario, r, world, str(tmp)))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def result(self):
+        """Rank 0's result, once every rank has exited 0."""
+        try:
+            for p in self.procs:
+                p.join(timeout=240)
+        finally:
+            self.close()
+        for r, p in enumerate(self.procs):
+            if p.exitcode != 0:
+                log = (self.tmp / f"rank{r}.log").read_text()
+                raise AssertionError(f"rank {r} exited {p.exitcode}:\n"
+                                     f"{log[-3000:]}")
+        return torch.load(self.tmp / "result.pt", weights_only=False)
+
+    def close(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
 def spawn(scenario: str, world: int, tmp):
-    """Run `scenario` on `world` rank processes (tmp: a pathlib.Path for
-    the store and the result); returns rank 0's result."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "torch_dist_ranks.py"), scenario,
-         str(r), str(world), str(tmp / "store"), str(tmp)],
-        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
-    return torch.load(tmp / "result.pt", weights_only=False)  # our own file
+    """Run `scenario` on `world` rank processes; returns rank 0's
+    result."""
+    return Ranks(scenario, world, tmp).result()
+
+
+def start_worlds(scenario: str, worlds, tmp_path_factory):
+    """{world: Ranks} of `scenario` on each world size, all running at
+    once, each in a directory of its own; a module fixture yields it and
+    closes every Ranks after its tests."""
+    return {n: Ranks(scenario, n, tmp_path_factory.mktemp(f"{scenario}{n}"))
+            for n in worlds}
 
 # (label, mesh shape, NY, NX, solver, dtype, storage, neutral_delta)
 STEP_CASES = [
-    ("y4_fft", (4, 1), 64, 32, "FFT", torch.float64, "native", False),
-    ("y4_none", (4, 1), 64, 32, "NONE", torch.float64, "native", False),
-    ("yx22_fft", (2, 2), 64, 64, "FFT", torch.float64, "native", False),
-    ("x4_fft", (1, 4), 64, 64, "FFT", torch.float64, "native", False),
-    ("y4_none_bf16", (4, 1), 64, 32, "NONE", torch.float32, "bf16", True),
+    ("y4_fft", (4, 1), 32, 32, "FFT", torch.float64, "native", False),
+    ("y4_none", (4, 1), 32, 32, "NONE", torch.float64, "native", False),
+    ("yx22_fft", (2, 2), 32, 32, "FFT", torch.float64, "native", False),
+    ("x4_fft", (1, 4), 32, 32, "FFT", torch.float64, "native", False),
+    ("y4_none_bf16", (4, 1), 32, 32, "NONE", torch.float32, "bf16", True),
 ]
 STEPS = 3
 
@@ -92,7 +149,8 @@ def steps_on_meshes(out_dir: str) -> None:
 def ring_and_cli(out_dir: str) -> None:
     """On two ranks: ring_shift one step either way (the peer ahead is the
     peer behind), the CLI's refusal of --shard 3, then the CLI with
-    --shard 2; rank 0 saves what each rank received and the probes."""
+    --shard 2, periodic and with CLI_BOUNCEBACK; rank 0 saves what each
+    rank received and the probes."""
     from lbm_tpu_torch import run_plasma
 
     m = mesh.make_mesh((2, 1), "cpu")
@@ -114,12 +172,23 @@ def ring_and_cli(out_dir: str) -> None:
         "--device", "cpu", "--shard", "2", "--nx", "32", "--ny", "32",
         "--steps", "3", "--f64", "--poisson", "FFT", "--no-video",
         "--no-plots", "--out", os.path.join(out_dir, "cli")])
+    walled = run_plasma.main([*CLI_BOUNCEBACK, "--shard", "2", "--out",
+                              os.path.join(out_dir, "cli_bb")])
     if r == 0:
         torch.save({"received": received, "refused": refused,
                     "probes": summary["probes"], "mesh": summary["mesh"],
                     "launches": summary["launches"],
-                    "f": summary["state"].f}, os.path.join(out_dir,
-                                                           "result.pt"))
+                    "f": summary["state"].f,
+                    "bb": {k: walled[k] for k in ("probes", "mesh",
+                                                  "state")}},
+                   os.path.join(out_dir, "result.pt"))
+
+
+# the 2-D CLI on the sharded plain step (bounce-back: the auto mesh's third
+# choice)
+CLI_BOUNCEBACK = ["--device", "cpu", "--bc", "bounceback", "--poisson", "FFT",
+                  "--nx", "16", "--ny", "16", "--steps", "3", "--no-video",
+                  "--no-plots"]
 
 
 # the cavity on a (world, 1) mesh: (label, NY, NX, dtype, storage, path,
@@ -481,10 +550,79 @@ def video_runs(out_dir: str) -> None:
         assert plasma["video"] is None and cav["video"] is None
 
 
+# the sharded plain steps on four ranks (parallel/sharding): (label, mesh
+# shape, NY, NX, solver, bc, dtype, storage, neutral_delta, poisson_tol)
+PLAIN_CASES = [
+    ("y4_gs_bb", (4, 1), 32, 32, "GS", "BOUNCE_BACK", F64, "native", False,
+     1e-8),
+    ("yx22_sor_bb", (2, 2), 32, 32, "SOR", "BOUNCE_BACK", F64, "native",
+     False, 1e-8),
+    ("x4_nps", (1, 4), 32, 32, "NPS", "PERIODIC", F64, "native", False,
+     1e-8),
+    ("yx22_gs_tol", (2, 2), 32, 32, "GS", "PERIODIC", F64, "native", False,
+     1e-4),
+    ("y4_fft_bb", (4, 1), 32, 32, "FFT", "BOUNCE_BACK", F64, "native",
+     False, 1e-8),
+    ("y4_none_bb", (4, 1), 32, 32, "NONE", "BOUNCE_BACK", F64, "native",
+     False, 1e-8),
+    ("yx22_fft_12", (2, 2), 12, 12, "FFT", "PERIODIC", F64, "native", False,
+     1e-8),
+    ("yx22_none_bb_bf16", (2, 2), 32, 32, "NONE", "BOUNCE_BACK", F32, "bf16",
+     True, 1e-8),
+]
+PLAIN_STEPS = 2
+PLAIN_MAX_ITER = 40
+# the sharded plain cavity step: (label, mesh shape, N, dtype, steps)
+PLAIN_CAVITY = [("yx22_f64", (2, 2), 32, F64, 20),
+                ("y4_f32", (4, 1), 32, F32, 20)]
+
+
+def plain_config(ny, nx, solver, bc, dtype, storage, delta, tol
+                 ) -> PlasmaConfig:
+    return PlasmaConfig(NX=nx, NY=ny, dtype=dtype, storage=storage,
+                        neutral_delta=delta, poisson=PoissonSolver[solver],
+                        bc=BC[bc], poisson_max_iter=PLAIN_MAX_ITER,
+                        poisson_tol=tol)
+
+
+def plain_runs(out_dir: str) -> None:
+    """Every PLAIN_CASES case for PLAIN_STEPS steps and every PLAIN_CAVITY
+    case through make_sharded_step / make_sharded_cavity_step on its mesh;
+    rank 0 saves the gathered states and every rank's sweep count after
+    each step."""
+    from lbm_tpu_torch.ops import poisson as poisson_ops
+
+    results = {}
+    for label, shape, ny, nx, *rest in PLAIN_CASES:
+        cfg = plain_config(ny, nx, *rest)
+        m = mesh.make_mesh(shape, "cpu")
+        step = sharding.make_sharded_step(cfg, m)
+        state = sharding.shard_state(plasma.init_state(cfg, "cpu"), m)
+        sweeps = []
+        for _ in range(PLAIN_STEPS):
+            state = step(state)
+            sweeps.append(poisson_ops.LAST_SWEEPS)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, sweeps)
+        full = sharding.gather_state(state, m)
+        results[label] = dict({k: getattr(full, k) for k in
+                               ("f", "g", "Ex", "Ey", "phi")}, sweeps=every)
+    for label, shape, n, dtype, steps in PLAIN_CAVITY:
+        cfg = CavityConfig(NX=n, NY=n, dtype=dtype)
+        m = mesh.make_mesh(shape, "cpu")
+        step = sharding.make_sharded_cavity_step(cfg, m)
+        state = sharding.shard_cavity_state(cavity.init_state(cfg, "cpu"), m)
+        for _ in range(steps):
+            state = step(state)
+        results["cavity_" + label] = sharding.gather_cavity_state(state, m)
+    if dist.get_rank() == 0:
+        torch.save(results, os.path.join(out_dir, "result.pt"))
+
+
 SCENARIOS = {"steps": steps_on_meshes, "ring_cli": ring_and_cli,
              "cavity": cavity_runs, "column": column_runs,
              "windows": window_runs, "checkpoint": checkpoint_runs,
-             "video": video_runs}
+             "video": video_runs, "plain": plain_runs}
 
 
 def main(argv) -> None:

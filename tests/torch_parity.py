@@ -68,6 +68,21 @@ def op_by_op(fn):
     return run
 
 
+# XLA's CPU backend with its LLVM optimisations off: the compiled code
+# rounds every product, as the ops run one at a time do (no fused
+# multiply-adds), and compiles in less time than the default
+O0 = {"xla_backend_optimization_level": 0}
+
+
+def jit_o0(fn):
+    """jax.jit(fn) compiled with O0: a march of many JAX steps in one
+    compile, within ~1e-15 of scale of the same march op by op (measured
+    on the 64x24 f64 plasma after 19 steps, and bitwise on the 8x8 NPS
+    debug run), where the default jit's fused multiply-adds move the
+    neutral's g by ~4e-13."""
+    return jax.jit(fn, compiler_options=O0)
+
+
 def as_numpy(state) -> dict:
     """A JAX PlasmaState as a dict of numpy arrays (bf16 stays ml_dtypes)."""
     return {k: np.asarray(v) for k, v in state._asdict().items()}
